@@ -17,16 +17,31 @@ Phases, each of which fails the run if it fails:
 6. render a REST inference trajectory at the REST recipe's full widths
    through ``InferencePipeline.render_trajectory`` (warm-up pass, then a
    timed pass with the kernels' launch counts set to 0 just before it),
-   and check that every frame has content and went through K1 and V1.
+   and check that every frame has content and went through K1 and V1;
+7. hold the blend backward (K2) and the sorted segment sum (K3, both of
+   its uses: the hash-grid embedding gradient and the per-Gaussian
+   gradient reduction) against their plain versions on the inputs one
+   full-width REST train step gives them, and run K3 twice (bit-equal);
+8. take two train steps of a tiny config on the card and on the CPU
+   (plain versions) from the same seeded weights and compare losses and
+   gradients;
+9. train the REST generator at the REST recipe's full widths through
+   ``Trainer.train_step`` (2 warm-up steps, then 5 timed steps with the
+   launch counts set to 0 just before them): finite losses, changed
+   weights, ``RasterGradTruncated`` 0, and K1, K2 and K3 on every step.
+
+The perceptual loss runs on seeded random VGG19 weights (the repository
+holds no converted ImageNet weights) behind the JAX package's opt-in gate,
+and the run says so.
 
 It prints timings beside the card's name and power limit, a ``kernels``
-JSON line (launches on the timed pass, time, plain time, bound, max
-error), and as its last line ``{"ok": true, "device": {...}}``.
+JSON line (launches on the timed passes, time, plain time, library time,
+bound, max error), and as its last line ``{"ok": true, "device": {...}}``.
 
 Run from the repository root: ``python3 chip_smoke.py``
-(``--profile`` adds a torch.profiler pass over the frame path).  Without a
-CUDA device, or outside the repository, it exits non-zero and prints no
-result.
+(``--profile`` adds torch.profiler passes over the frame and the train
+step).  Without a CUDA device, or outside the repository, it exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -49,8 +64,26 @@ BLEND_FLOP_PER_EVAL = 26
 # operations per DDA step: axis choice (2), cell step and exit test (3),
 # next crossing (3), in-volume test (6), voxel address (4), hit test (1)
 RAYCAST_OPS_PER_STEP = 19
+# fp32 operations per (pixel, slot) pair that the blend backward tests:
+# offsets (2), power (9), exp (1), alpha and clamp (2), the eligibility
+# tests (3) and the nine reduction adds (9); counted slots do ~45 more,
+# left out, so the bound is a lower one
+BLEND_BWD_FLOP_PER_EVAL = 26
 
 K1_TOL = 1e-5  # image and final_T, max abs
+# K2: per-pixel terms equal the plain version's, the sums over a tile's
+# 1,024 pixels run in another order: relative to each column's largest
+# magnitude
+K2_RTOL = 1e-4
+# K3 sums each run in sorted order, the plain index_add_ in its own:
+# relative to the largest output magnitude
+K3_RTOL = 1e-5
+# tiny train step, card vs CPU: convolutions (cuDNN, TF32 off) and
+# reductions sum in other orders; gradients relative to each parameter's
+# largest gradient
+STEP_LOSS_RTOL = 1e-4
+STEP_GRAD_RTOL = 1e-3
+TRAIN_POINTS = 16384  # the REST recipe's train_max_points
 MATCH_SHARE = 0.999  # n_contrib and voxel ids: share of pixels equal
 N_BLEND_GAUSSIANS = 400_000  # Gaussians of K1's seeded test scene
 
@@ -411,22 +444,371 @@ def phase_profile(pipe, projections, centers, poses):
                                             pose)[0])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    report_profile(prof, wall_ms, f"{len(poses)} frames")
+
+
+def synthetic_rest_batch(cfg, n_pts: int, seed: int, device):
+    """The JAX package's benchmark batch (bench.py synthetic_rest_batch),
+    drawn with numpy: points 5-250 m ahead of a camera at the origin that
+    looks along +x, random RGB and seg targets, empty projections."""
+    import torch
+
+    ds = cfg.dataset
+    Wc, Hc = ds.train_crop_size
+    P = ds.proj_size
+    rng = np.random.default_rng(seed)
+    depth = rng.uniform(5.0, 250.0, (1, n_pts))
+    pts = np.concatenate([
+        np.stack([depth, rng.uniform(-0.8, 0.8, (1, n_pts)) * depth,
+                  rng.uniform(-0.4, 0.4, (1, n_pts)) * depth], -1),
+        rng.uniform(0.3, 1.0, (1, n_pts, 1)),
+        rng.integers(0, 8, (1, n_pts, 1)).astype(np.float64),
+        rng.uniform(-1, 1, (1, n_pts, 3)),
+        np.zeros((1, n_pts, 1))], -1)
+    arrays = {
+        "pts": pts, "rgb": rng.uniform(-1, 1, (1, Hc, Wc, 3)),
+        "seg": np.eye(ds.n_classes)[rng.integers(0, ds.n_classes,
+                                                 (1, Hc, Wc))],
+        "msk": np.ones((1, Hc, Wc, 1)), "proj_hf": np.zeros((1, P, P, 1)),
+        "proj_seg": np.zeros((1, P, P, ds.n_classes)),
+        "cam_pos": np.zeros((1, 3)), "cam_quat": np.array([[0.0, 0, 0, 1]])}
+    batch = {k: torch.as_tensor(v, dtype=torch.float32, device=device)
+             for k, v in arrays.items()}
+    batch["pts_mask"] = torch.ones((1, n_pts), dtype=torch.bool,
+                                   device=device)
+    batch["crp_xy"] = torch.tensor([[100, 40]], dtype=torch.int32,
+                                   device=device)
+    return batch
+
+
+def rest_train_config():
+    """The REST recipe at its full widths; the perceptual loss may run on
+    random VGG weights (no converted ImageNet weights in the repository)."""
+    from gaussiancity_tpu_torch.config import rest_recipe
+
+    cfg = rest_recipe()
+    return cfg.replace(train=cfg.train.replace(allow_random_vgg=True))
+
+
+def capture_step_inputs(trainer, batch):
+    """One train step, keeping the arguments of its K2 call and of its
+    two K3 calls (the hash-grid and the per-Gaussian use)."""
+    import torch
+
+    from gaussiancity_tpu_torch.ops import hash_grid_bwd
+    from gaussiancity_tpu_torch.ops.rasterizer import blend
+
+    captured = {"segment_sum": []}
+    bwd, seg = blend.blend_backward, hash_grid_bwd.segment_sum_sorted
+
+    def detached(args):
+        return tuple(a.detach() if isinstance(a, torch.Tensor) else a
+                     for a in args)
+
+    def bwd_rec(*args):
+        captured["blend_bwd"] = detached(args)
+        return bwd(*args)
+
+    def seg_rec(*args):
+        captured["segment_sum"].append(detached(args))
+        return seg(*args)
+
+    # the wrappers count their launches on their own names
+    bwd_rec.launches = seg_rec.launches = 0
+    blend.blend_backward = bwd_rec
+    hash_grid_bwd.segment_sum_sorted = seg_rec
+    try:
+        trainer.train_step(batch)
+    finally:
+        blend.blend_backward = bwd
+        hash_grid_bwd.segment_sum_sorted = seg
+    return captured
+
+
+def phase_grad_kernels(captured):
+    """K2 and K3 against their plain versions on one train step's inputs."""
+    import torch
+
+    from gaussiancity_tpu_torch.ops import hash_grid_bwd
+    from gaussiancity_tpu_torch.ops.rasterizer import blend
+
+    args = captured["blend_bwd"]
+    attrs, idx, k_hi, origin, _, _, final_T, _, consts = args
+    T, K = idx.shape
+    H, W = final_T.shape
+    log(f"K2 inputs: T={T} K={K} N={attrs.shape[0]} image {H}x{W} origin "
+        f"{origin} slots to replay {int(k_hi.sum())} max k_hi "
+        f"{int(k_hi.max())}")
+    check(T == 280 and K == 1024 and (H, W) == (448, 640),
+          "K2 must run at the train step's shape")
+    got = blend.blend_backward(*args)
+    want = blend.blend_backward_plain(*args)
+    torch.cuda.synchronize()
+    scale = want.abs().amax(dim=0)
+    err = (got - want).abs()
+    rel = float((err / scale.clamp(min=1e-30)).max())
+    log(f"K2 vs plain: max|d| {float(err.max()):.3e}, largest |d| / column "
+        f"scale {rel:.3e} (column scales {[f'{v:.3e}' for v in scale]})")
+    check(bool((err <= K2_RTOL * scale).all()),
+          f"K2 differs from the plain version by more than {K2_RTOL} of a "
+          "column's scale")
+    check(float(scale.min()) > 0, "K2 test inputs give a zero column")
+    ms = cuda_time_ms(lambda: blend.blend_backward(*args))
+    plain_ms = cuda_time_ms(lambda: blend.blend_backward_plain(*args),
+                            iters=2, warmup=1)
+    # bound: slot indices and the rows of the Gaussians they name read
+    # once, four pixel planes read once, [T*K, 9] rows written once; and
+    # every (in-image pixel, slot < k_hi) pair tested
+    tid = torch.arange(T, device=idx.device)
+    n_tx = consts.n_tx
+    px_w = torch.clamp(W - (tid % n_tx) * consts.tile_w, max=consts.tile_w)
+    px_h = torch.clamp(H - (tid // n_tx) * consts.tile_h, max=consts.tile_h)
+    n_eval = int((px_w * px_h * k_hi).sum())
+    live = torch.arange(K, device=idx.device)[None, :] < k_hi[:, None]
+    n_gauss = int(torch.unique(idx[live]).numel())
+    n_bytes = (int(k_hi.sum()) * 4 + n_gauss * 10 * 4 + T * 4
+               + H * W * 6 * 4 + T * K * 9 * 4)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_eval * BLEND_BWD_FLOP_PER_EVAL / FP32_FLOP_PER_S * 1e3
+    log(f"K2: {ms:.4f} ms, plain {plain_ms:.2f} ms; bound: {n_bytes} B -> "
+        f"{t_bytes:.5f} ms, {n_eval} tested pairs -> {t_ops:.5f} ms")
+    k2 = {"name": "blend_bwd", "route": "cuda",
+          "source": "gaussiancity_tpu_torch/csrc/blend_bwd.cu",
+          "replaces": "gaussiancity_tpu/ops/rasterizer/blend_pallas.py:350",
+          "max_abs_err": float(err.max()), "ms": ms, "plain_ms": plain_ms,
+          "bound_ms": max(t_bytes, t_ops),
+          "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+          "library_ms": None}
+
+    uses = {}
+    for keys, rows, n_rows in captured["segment_sum"]:
+        use = "hash_grid" if rows.shape[0] > 1 else "per_gaussian"
+        uses[use] = (keys, rows, n_rows)
+    check(sorted(uses) == ["hash_grid", "per_gaussian"],
+          "the train step must call K3 for both of its uses")
+    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                  err=0.0, t_bytes=0.0, t_ops=0.0)
+    for use, (keys, rows, n_rows) in sorted(uses.items()):
+        L, M, C = rows.shape
+        got = hash_grid_bwd.segment_sum_sorted(keys, rows, n_rows)
+        again = hash_grid_bwd.segment_sum_sorted(keys, rows, n_rows)
+        want = hash_grid_bwd.segment_sum_sorted_plain(keys, rows, n_rows)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        log(f"K3 {use}: L={L} M={M} C={C} R={n_rows}; vs plain max|d| "
+            f"{err:.3e} (scale {scale:.3e}); repeat bit-equal "
+            f"{torch.equal(got, again)}")
+        check(torch.equal(got, again), f"K3 ({use}) differs between runs")
+        check(err <= K3_RTOL * scale and scale > 0,
+              f"K3 ({use}) differs from index_add_ by more than {K3_RTOL}")
+        ms = cuda_time_ms(
+            lambda: hash_grid_bwd.segment_sum_sorted(keys, rows, n_rows))
+        plain_ms = cuda_time_ms(
+            lambda: hash_grid_bwd.segment_sum_sorted_plain(keys, rows,
+                                                           n_rows),
+            iters=5, warmup=1)
+        # the library call: one index_add_ over all levels (keys offset
+        # by level, keys outside the table dropped beforehand)
+        k = keys.long()
+        keep = (k >= 0) & (k < n_rows)
+        flat = (k + torch.arange(L, device=k.device)[:, None] * n_rows)[keep]
+        flat_rows = rows[keep]
+        library_ms = cuda_time_ms(lambda: torch.zeros(
+            (L * n_rows, C), device=rows.device).index_add_(0, flat,
+                                                            flat_rows))
+        n_keys = int(keep.sum())
+        n_bytes = n_keys * (4 + C * 4) + L * n_rows * C * 4
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = n_keys * C / FP32_FLOP_PER_S * 1e3
+        log(f"K3 {use}: {ms:.4f} ms, plain {plain_ms:.3f} ms, index_add_ "
+            f"{library_ms:.4f} ms; bound: {n_bytes} B -> {t_bytes:.5f} ms, "
+            f"{n_keys * C} adds -> {t_ops:.6f} ms")
+        for name, v in (("ms", ms), ("plain_ms", plain_ms),
+                        ("library_ms", library_ms), ("t_bytes", t_bytes),
+                        ("t_ops", t_ops)):
+            totals[name] += v
+        totals["err"] = max(totals["err"], err)
+    k3 = {"name": "segment_sum", "route": "cuda",
+          "source": "gaussiancity_tpu_torch/csrc/segment_sum.cu",
+          "replaces": "gaussiancity_tpu/ops/hash_grid_bwd.py:57",
+          "max_abs_err": totals["err"], "ms": totals["ms"],
+          "plain_ms": totals["plain_ms"],
+          "bound_ms": max(totals["t_bytes"], totals["t_ops"]),
+          "bound_by": ("bytes" if totals["t_bytes"] >= totals["t_ops"]
+                       else "operations"),
+          "library_ms": totals["library_ms"]}
+    log("K3 line: both uses of one step summed (ms, plain, library, bound)")
+    return [k2, k3]
+
+
+def tiny_train_config():
+    """The JAX suite's tiny train config (tests/test_train_step.py) with a
+    one-step D warm-up."""
+    from gaussiancity_tpu_torch.config import (
+        Config, DatasetConfig, DiscriminatorOptim, GaussianNetworkConfig,
+        PTv3Config, RasterizerConfig, TrainConfig)
+
+    return Config(
+        dataset=DatasetConfig(
+            sensor_size=(256, 64), train_crop_size=(128, 32), n_classes=8,
+            proj_size=32, cam_k=(100.0, 0, 128.0, 0, 100.0, 32.0, 0, 0, 1)),
+        network=GaussianNetworkConfig(
+            scale_factor=0.5, encoder="GLOBAL", encoder_out_dim=5,
+            global_encoder_n_blocks=2, pos_emd="HASH_GRID",
+            hash_grid_n_levels=4, hash_grid_level_dim=4,
+            hash_grid_map_size=10, mlp_hidden_dim=32, dis_n_channel_base=8,
+            ptv3=PTv3Config(enabled=False)),
+        rasterizer=RasterizerConfig(tile_h=8, tile_w=128, tile_capacity=128),
+        train=TrainConfig(
+            allow_random_vgg=True,
+            perceptual_loss_layers=("relu_1_1", "relu_2_1"),
+            perceptual_loss_weights=(0.5, 1.0),
+            discriminator=DiscriminatorOptim(n_warmup_iters=1)))
+
+
+def phase_small_train(device):
+    """Two tiny train steps on the card (kernels) and on the CPU (plain
+    versions) from the same seeded weights: losses and gradients agree."""
+    from gaussiancity_tpu_torch.training.step import Trainer
+
+    cfg = tiny_train_config()
+    runs = {}
+    for dev in (device, "cpu"):
+        trainer = Trainer(cfg, device=dev, seed=3)
+        batch = synthetic_rest_batch(cfg, 256, seed=4, device=dev)
+        metrics, grads = [], None
+        for i in range(2):
+            metrics.append({k: float(v)
+                            for k, v in trainer.train_step(batch).items()})
+            if i == 0:
+                grads = {f"{m}.{n}": p.grad.detach().cpu().clone()
+                         for m, mod in (("G", trainer.generator),
+                                        ("D", trainer.discriminator))
+                         for n, p in mod.named_parameters()}
+        runs[dev] = (metrics, grads)
+    (m_card, g_card), (m_cpu, g_cpu) = runs[device], runs["cpu"]
+    for i, (a, b) in enumerate(zip(m_card, m_cpu)):
+        for k in b:
+            ok = abs(a[k] - b[k]) <= STEP_LOSS_RTOL * abs(b[k]) + 1e-7
+            check(np.isfinite(a[k]) and ok,
+                  f"tiny step {i} {k}: card {a[k]} vs CPU {b[k]}")
+        log(f"tiny step {i} card vs CPU: GenLoss {a['GenLoss']:.6f} / "
+            f"{b['GenLoss']:.6f}, DisLoss {a['DisLoss']:.6f} / "
+            f"{b['DisLoss']:.6f}")
+    worst = 0.0
+    for name, want in g_cpu.items():
+        scale = float(want.abs().max())
+        err = float((g_card[name] - want).abs().max())
+        worst = max(worst, err / scale if scale > 0 else err)
+        check(err <= STEP_GRAD_RTOL * scale,
+              f"tiny step gradient {name}: card vs CPU max|d| {err:.3e}, "
+              f"scale {scale:.3e}")
+    log(f"tiny step gradients card vs CPU: worst max|d| / scale "
+        f"{worst:.3e} over {len(g_cpu)} parameters")
+
+
+def phase_train(trainer, batch, n_warm: int = 2, n_timed: int = 5):
+    """The full-width REST train step: warm-up, then timed steps with the
+    launch counts set to 0 just before them."""
+    import torch
+
+    from gaussiancity_tpu_torch.ops import hash_grid_bwd
+    from gaussiancity_tpu_torch.ops.rasterizer import blend
+
+    def snapshot():
+        g = trainer.generator
+        return {"hash table": g.pos_encoder.embeddings.detach().clone(),
+                "MLP": g.ga_mlp.fc_1.weight.detach().clone(),
+                "D": torch.cat([p.detach().reshape(-1) for p in
+                                trainer.discriminator.parameters()])}
+
+    t0 = time.perf_counter()
+    for i in range(n_warm):
+        m = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        log(f"train warm-up step {i}: GenLoss {float(m['GenLoss']):.5f} "
+            f"DisLoss {float(m['DisLoss']):.5f} RasterGradTruncated "
+            f"{int(m['RasterGradTruncated'])}")
+    log(f"train warm-up: {n_warm} steps in {time.perf_counter() - t0:.2f} s")
+    trainer.stage_ms.clear()
+    trainer.time_stages = True
+    torch.cuda.reset_peak_memory_stats()
+    blend.blend_forward.launches = 0
+    blend.blend_backward.launches = 0
+    hash_grid_bwd.segment_sum_sorted.launches = 0
+    step_ms = []
+    for i in range(n_timed):
+        before = snapshot()
+        t0 = time.perf_counter()
+        m = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        after = snapshot()
+        m = {k: float(v) for k, v in m.items()}
+        log(f"train step {i}: {step_ms[-1]:.2f} ms " + " ".join(
+            f"{k} {v:.5g}" for k, v in sorted(m.items())))
+        for k, v in m.items():
+            check(np.isfinite(v), f"train step {i}: {k} is not finite")
+        check(m["RasterGradTruncated"] == 0,
+              "RasterGradTruncated must be 0 at grad_budget 65536")
+        for name in before:
+            change = float((after[name] - before[name]).abs().max())
+            check(change > 0, f"train step {i} left the {name} unchanged")
+        log(f"  weights changed (max |d|): " + ", ".join(
+            f"{n} {float((after[n] - before[n]).abs().max()):.3e}"
+            for n in before))
+    trainer.time_stages = False
+    launches = {"blend_fwd": blend.blend_forward.launches,
+                "blend_bwd": blend.blend_backward.launches,
+                "segment_sum": hash_grid_bwd.segment_sum_sorted.launches}
+    log(f"launches on the {n_timed} timed steps: {launches}")
+    check(launches["blend_fwd"] >= n_timed and launches["blend_bwd"]
+          >= n_timed and launches["segment_sum"] >= 2 * n_timed,
+          "K1, K2 and K3 must be launched on every train step")
+    med = float(np.median(step_ms))
+    log(f"train step: median {med:.2f} ms of {n_timed} (stage timers "
+        f"synchronise the device at each boundary); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for stage, ms in trainer.stage_ms.items():
+        log(f"  stage {stage:10s} " + " ".join(f"{v:9.2f}" for v in ms)
+            + f"   median {float(np.median(ms)):9.2f} ms")
+    return launches
+
+
+def phase_train_profile(trainer, batch, n: int = 3):
+    """torch.profiler over ``n`` train steps (``--profile``): device
+    time by kernel and the device's busy share of the wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    report_profile(prof, wall_ms, f"{n} train steps")
+
+
+def report_profile(prof, wall_ms: float, what: str) -> None:
+    import torch
+
     def device_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0))
 
-    # the kernels themselves: their events lie on the device
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
               and device_us(e) > 0]
     events.sort(key=lambda e: -device_us(e))
     busy_ms = sum(device_us(e) for e in events) / 1e3
-    log(f"profile: {len(poses)} frames, wall "
-        f"{wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
-        f"({busy_ms / wall_ms:.4f} of wall)")
+    log(f"profile: {what}, wall {wall_ms:.2f} ms, device busy "
+        f"{busy_ms:.2f} ms ({busy_ms / wall_ms:.4f} of wall)")
     for e in events[:25]:
-        log(f"  {device_us(e) / 1e3:10.3f} ms {e.count:6d}x "
-            f"{e.key[:100]}")
+        log(f"  {device_us(e) / 1e3:10.3f} ms {e.count:6d}x {e.key[:100]}")
     check(busy_ms > 0, "the profiler saw no device time")
 
 
@@ -458,6 +840,22 @@ def main() -> int:
     launches = phase_frame(pipe, projections, centers, poses)
     if "--profile" in sys.argv[1:]:
         phase_profile(pipe, projections, centers, poses)
+    del pipe
+    torch.cuda.empty_cache()
+
+    from gaussiancity_tpu_torch.training.step import Trainer
+
+    log("the perceptual loss runs on seeded RANDOM VGG19 weights: the "
+        "repository holds no converted ImageNet weights")
+    trainer = Trainer(rest_train_config(), device=device, seed=0)
+    batch = synthetic_rest_batch(trainer.cfg, TRAIN_POINTS, seed=1,
+                                 device=device)
+    kernels += phase_grad_kernels(capture_step_inputs(trainer, batch))
+    phase_small_train(device)
+    train_launches = phase_train(trainer, batch)
+    if "--profile" in sys.argv[1:]:
+        phase_train_profile(trainer, batch)
+    launches.update(train_launches)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")

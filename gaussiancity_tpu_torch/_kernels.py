@@ -23,7 +23,7 @@ from typing import Dict, Iterable, Optional
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("blend_fwd", "raycast")
+KERNELS = ("blend_fwd", "blend_bwd", "segment_sum", "raycast")
 # -fmad=false: no fused multiply-adds, so the kernels round like their
 # plain PyTorch versions at the blend and DDA thresholds
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -37,6 +37,13 @@ _ARGTYPES = {
     # image, final_T, n_contrib, stream
     "blend_fwd": [P, P, P, P, I, I, I, I, I, I, I, F, F, I, F, F, F,
                   P, P, P, P],
+    # attrs, gauss_index, k_hi, T, K, n_tx, tile_h, tile_w, img_h, img_w,
+    # origin_x, origin_y, ref_gate, alpha_min, alpha_max, g_out, bg_dot_g,
+    # final_T, n_contrib, grads, stream
+    "blend_bwd": [P, P, P, I, I, I, I, I, I, I, F, F, I, F, F, P, P, P, P,
+                  P, P],
+    # keys, rows, L, M, C, R, out, stream
+    "segment_sum": [P, P, I, I, I, I, P, P],
     # volume, h, w, d, rays (origin, up, side, fwd), H, W, cy, cx, f,
     # ztop, voxel_id, depth, stream
     "raycast": [P, I, I, I, P, I, I, F, F, F, F, P, P, P],

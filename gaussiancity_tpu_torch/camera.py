@@ -17,6 +17,8 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from gaussiancity_tpu_torch.device import resolve_device
+
 
 class CameraParams(NamedTuple):
     """Per-render camera: host floats plus three small tensors on the
@@ -151,12 +153,13 @@ class CameraModel:
             view_matrix=w2c, full_proj=full, cam_pos=cam_pos)
 
     def params(self, cam_position, cam_quaternion,
-               device="cpu") -> CameraParams:
-        """Host (float64) pose math; the matrices land on ``device``."""
+               device=None) -> CameraParams:
+        """Host (float64) pose math; the matrices land on ``device`` (the
+        card unless the caller asks for the CPU, ``resolve_device``)."""
         w2c = world_to_camera(cam_position, cam_quaternion)
         full = self.P @ w2c
         c2w = np.linalg.inv(w2c)
-        f32 = dict(dtype=torch.float32, device=device)
+        f32 = dict(dtype=torch.float32, device=resolve_device(device))
         return self._params(torch.as_tensor(w2c, **f32),
                             torch.as_tensor(full, **f32),
                             torch.as_tensor(c2w[:3, 3], **f32))

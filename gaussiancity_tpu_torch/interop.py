@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from gaussiancity_tpu_torch.config import Config, GaussianNetworkConfig
+from gaussiancity_tpu_torch.device import resolve_device
 
 
 def _t(a) -> torch.Tensor:
@@ -82,9 +83,10 @@ def save_generator(path: str, state: Mapping[str, torch.Tensor],
                                for k, v in state.items()}}, path)
 
 
-def load_generator(path: str, device="cpu"
+def load_generator(path: str, device=None
                    ) -> Tuple["torch.nn.Module", Config]:
-    """Rebuild the generator saved by ``save_generator`` on ``device``."""
+    """Rebuild the generator saved by ``save_generator`` on ``device``
+    (the card unless the caller asks for the CPU)."""
     from gaussiancity_tpu_torch.models.generator import Generator
 
     blob = torch.load(path, map_location="cpu", weights_only=True)
@@ -92,4 +94,38 @@ def load_generator(path: str, device="cpu"
     gen = Generator(cfg.network, n_classes=cfg.dataset.n_classes,
                     proj_size=cfg.dataset.proj_size)
     gen.load_state_dict(blob["state_dict"])
-    return gen.to(device).eval(), cfg
+    return gen.to(resolve_device(device)).eval(), cfg
+
+
+_SN_LAYERS = ("enc1", "enc2", "enc3", "enc4", "enc5", "lat5", "lat4",
+              "lat3", "lat2", "final2")
+
+
+def discriminator_state_from_flax(params_np: Mapping,
+                                  batch_stats_np: Mapping
+                                  ) -> Dict[str, torch.Tensor]:
+    """Flax ``Discriminator`` params and ``batch_stats`` (the spectral-norm
+    ``u`` and ``sigma``) -> the port's ``Discriminator.state_dict()``."""
+    if "params" in params_np:
+        params_np = params_np["params"]
+    if "batch_stats" in batch_stats_np:
+        batch_stats_np = batch_stats_np["batch_stats"]
+    out: Dict[str, torch.Tensor] = {}
+    for name in _SN_LAYERS:
+        _conv(params_np[name], name, out)
+        sn = batch_stats_np[name]["SpectralNorm_0"]
+        out[f"{name}.u"] = _t(sn["Conv_0/kernel/u"])
+        out[f"{name}.sigma"] = _t(sn["Conv_0/kernel/sigma"])
+    _conv({"Conv_0": params_np["output"]}, "output", out)
+    return out
+
+
+def vgg_state_from_flax(params_np: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``VGGFeatures`` params -> the port's ``VGGFeatures``
+    state_dict (HWIO kernels -> OIHW)."""
+    if "params" in params_np:
+        params_np = params_np["params"]
+    out: Dict[str, torch.Tensor] = {}
+    for name, p in params_np.items():
+        _conv({"Conv_0": p}, name, out)
+    return out

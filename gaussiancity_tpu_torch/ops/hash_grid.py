@@ -1,5 +1,5 @@
 # -*- coding: utf-8 -*-
-"""Multiresolution hash-grid positional encoding, forward (counterpart of
+"""Multiresolution hash-grid positional encoding (counterpart of
 ``gaussiancity_tpu/ops/hash_grid.py``; upstream grid_encoder,
 grid_encoder_ext.cu:51-249).
 
@@ -12,7 +12,8 @@ convert one to one.  Semantics:
 - dense indexing while the level's corner lattice fits its table, else
   the XOR-prime hash (uint32 arithmetic, emulated in int64 with a
   ``& 0xFFFFFFFF`` after each multiply);
-- align_corners=False: pos = x * scale + 0.5.
+- align_corners=False: pos = x * scale + 0.5;
+- the gradient follows the JAX package's custom VJP (``_HashEncode``).
 """
 
 from __future__ import annotations
@@ -23,6 +24,9 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.autograd.function import once_differentiable
+
+from gaussiancity_tpu_torch.ops import hash_grid_bwd
 
 _PRIMES = (1, 2654435761, 805459861, 3674653429, 2097192037, 1434869437,
            2165219737)
@@ -100,13 +104,11 @@ def corner_indices(grid: torch.Tensor, hashed: bool, resolution: int,
     return idx % rows
 
 
-def hash_encode(inputs: torch.Tensor, embeddings: torch.Tensor,
-                in_channels: int, n_levels: int, base_resolution: int,
-                desired_resolution: int, log2_hashmap_size: int,
-                bound: float = 1.0) -> torch.Tensor:
-    """inputs [N, D] -> [N, n_levels * C] (multilinear over the 2^D
-    corners of each level; one [2^D, N, C] gather per level)."""
-    D = in_channels
+def _level_geometry(inputs: torch.Tensor, D: int, n_levels: int,
+                    base_resolution: int, desired_resolution: int,
+                    log2_hashmap_size: int, bound: float):
+    """Per-level corner rows and weights: (idx [L, 2^D, N] int32, frac
+    [L, D, N], w [L, 2^D, N], oob [N], level scales)."""
     _, offsets, resolutions, hashed, total = level_params(
         D, n_levels, base_resolution, desired_resolution, log2_hashmap_size)
     level_rows = _level_rows(offsets, total)
@@ -114,7 +116,7 @@ def hash_encode(inputs: torch.Tensor, embeddings: torch.Tensor,
     x01 = (inputs + bound) / (2.0 * bound)
     oob = ((x01 < 0.0) | (x01 > 1.0)).any(dim=-1)
     bits = corner_bits(D, inputs.device)
-    outs = []
+    idx, fracs, ws, scales = [], [], [], []
     for lvl in range(n_levels):
         scale = (2.0 ** (lvl * S)) * base_resolution - 1.0
         pos = x01 * scale + 0.5  # [N, D]
@@ -125,12 +127,90 @@ def hash_encode(inputs: torch.Tensor, embeddings: torch.Tensor,
         for d in range(D):
             w = w * torch.where(bits[:, None, d] == 1, frac[None, :, d],
                                 1.0 - frac[None, :, d])
-        idx = corner_indices(g.long(), hashed[lvl], resolutions[lvl],
-                             level_rows[lvl])
-        vals = embeddings[lvl][idx]  # [2^D, N, C]
-        outs.append((vals * w[..., None]).sum(dim=0))
-    out = torch.cat(outs, dim=-1)
-    return torch.where(oob[:, None], torch.zeros_like(out), out)
+        idx.append(corner_indices(g.long(), hashed[lvl], resolutions[lvl],
+                                  level_rows[lvl]).to(torch.int32))
+        fracs.append(frac.T)
+        ws.append(w)
+        scales.append(scale)
+    return (torch.stack(idx), torch.stack(fracs), torch.stack(ws), oob,
+            scales)
+
+
+class _HashEncode(torch.autograd.Function):
+    """The JAX package's ``hash_encode`` custom VJP: the embedding
+    gradient is a sorted segment sum (kernel K3 on the card,
+    ``hash_grid_bwd.hash_grad_embeddings``), the input gradient the
+    closed-form multilinear chain (``hash_grid.py:275-298``)."""
+
+    @staticmethod
+    def forward(ctx, inputs, embeddings, geometry_args, bound):
+        D = inputs.shape[1]
+        idx, frac, w, oob, scales = _level_geometry(
+            inputs.detach(), D, *geometry_args, bound)
+        # one [2^D, N, C] gather per level: each level reads only its own
+        # [R_max, C] block.  The corner values are kept for the input
+        # gradient only when the inputs need one.
+        vals = [embeddings[lvl][idx[lvl].long()]
+                for lvl in range(idx.shape[0])]
+        out = torch.cat([(v * w[lvl, ..., None]).sum(dim=0)
+                         for lvl, v in enumerate(vals)], dim=-1)
+        out = torch.where(oob[:, None], torch.zeros_like(out), out)
+        keep = vals if ctx.needs_input_grad[0] else []
+        ctx.save_for_backward(idx, frac, w, oob, *keep)
+        ctx.scales, ctx.bound = scales, bound
+        ctx.n_rows = embeddings.shape[1]
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        idx, frac, w, oob, *vals = ctx.saved_tensors
+        L, NC, N = w.shape
+        D = frac.shape[1]
+        C = g.shape[1] // L
+        gm = torch.where(oob[:, None], torch.zeros_like(g), g)
+        g_l = gm.reshape(N, L, C).transpose(0, 1).contiguous()  # [L, N, C]
+        d_emb = d_inputs = None
+        if ctx.needs_input_grad[1]:
+            d_emb = hash_grid_bwd.hash_grad_embeddings(idx, w, g_l,
+                                                       ctx.n_rows)
+        if ctx.needs_input_grad[0]:
+            # dw[l, c, n] = <value of corner c, g_l[l, n]>
+            dw = torch.stack([(v * g_l[lvl][None]).sum(dim=-1)
+                              for lvl, v in enumerate(vals)])  # [L, 2^D, N]
+            bits = corner_bits(D, g.device)
+            scales = torch.tensor(ctx.scales, dtype=frac.dtype,
+                                  device=g.device)
+            d_x01 = []
+            for d in range(D):
+                prod = torch.ones_like(dw)
+                for d2 in range(D):
+                    if d2 != d:
+                        f = frac[:, None, d2, :]
+                        prod = prod * torch.where(bits[None, :, d2, None] == 1,
+                                                  f, 1.0 - f)
+                sign = torch.where(bits[:, d] == 1, 1.0, -1.0)[None, :, None]
+                dfrac = (dw * sign * prod).sum(dim=1)  # [L, N]
+                # pos = x01 * scale + 0.5, so d x01 = scale * d frac
+                d_x01.append((dfrac * scales[:, None]).sum(dim=0))
+            d_inputs = torch.stack(d_x01, dim=-1) / (2.0 * ctx.bound)
+            d_inputs = torch.where(oob[:, None], torch.zeros_like(d_inputs),
+                                   d_inputs)
+        return d_inputs, d_emb, None, None
+
+
+def hash_encode(inputs: torch.Tensor, embeddings: torch.Tensor,
+                in_channels: int, n_levels: int, base_resolution: int,
+                desired_resolution: int, log2_hashmap_size: int,
+                bound: float = 1.0) -> torch.Tensor:
+    """inputs [N, D] -> [N, n_levels * C] (multilinear over the 2^D
+    corners of each level).  Differentiable with respect to ``inputs`` and
+    ``embeddings`` (``_HashEncode``)."""
+    if inputs.shape[1] != in_channels:
+        raise ValueError(f"inputs must be [N, {in_channels}]")
+    return _HashEncode.apply(inputs, embeddings,
+                             (n_levels, base_resolution, desired_resolution,
+                              log2_hashmap_size), bound)
 
 
 class GridEncoder(nn.Module):

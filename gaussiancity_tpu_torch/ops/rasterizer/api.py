@@ -5,8 +5,10 @@ GaussianRasterizerWrapper, diff_gaussian_rasterization/__init__.py).
 
 ``rasterize`` runs preprocess -> binning -> blend (kernel K1 on CUDA) and
 returns the image, the final transmittance and the three exactness
-counters.  This slice is forward only: a gradient taken through the
-render raises ``NotImplementedError``.
+counters.  It is differentiable with respect to means3d, opacities,
+scales, quats, colors (or shs) and bg: the blend's backward is kernel K2
+plus the per-Gaussian reduction through kernel K3 (``_BlendFunction``),
+and autograd carries the per-Gaussian rows through ``preprocess``.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from gaussiancity_tpu_torch.camera import CameraModel, CameraParams
 from gaussiancity_tpu_torch.config import RasterizerConfig
@@ -26,27 +29,53 @@ class RenderOutput(NamedTuple):
     radii: torch.Tensor  # [N] int32
     n_dropped_pairs: torch.Tensor  # scalar int32 (0: binning is uncapped)
     n_truncated: torch.Tensor  # scalar int32: slots beyond tile_capacity
-    n_grad_truncated: torch.Tensor  # scalar int32 (0: no backward yet)
+    # scalar int32: slots carrying gradient past grad_capacity /
+    # grad_budget (0: the backward is exact)
+    n_grad_truncated: torch.Tensor
 
 
 class _BlendFunction(torch.autograd.Function):
-    """Forward through ``blend.blend_forward``; the backward (kernel K2
-    and the per-Gaussian gradient reduction) is not ported yet."""
+    """Forward through ``blend.blend_forward`` (K1); backward through
+    ``blend.blend_backward`` (K2) and ``blend.reduce_slot_grads`` (K3),
+    the port's ``blend_gathered`` custom VJP.  Returns (image, final_T,
+    n_contrib, n_grad_truncated); the last two carry no gradient."""
 
     @staticmethod
     def forward(ctx, attrs, bg, gauss_index, counts, origin, img_h, img_w,
-                consts):
+                consts, grad_cfg):
         image, final_T, n_contrib = blend.blend_forward(
             attrs, gauss_index, counts, origin, bg, img_h, img_w, consts)
-        ctx.mark_non_differentiable(n_contrib)
-        return image, final_T, n_contrib
+        grad_capacity, grad_budget, page = grad_cfg
+        k_hi = blend.tile_k_hi(counts, n_contrib, consts)
+        n_trunc = blend.grad_trunc_count(k_hi, grad_capacity, grad_budget,
+                                         gauss_index.shape[1], page)
+        ctx.mark_non_differentiable(n_contrib, n_trunc)
+        ctx.save_for_backward(attrs, bg, gauss_index, k_hi, final_T,
+                              n_contrib)
+        ctx.origin, ctx.consts, ctx.grad_cfg = origin, consts, grad_cfg
+        return image, final_T, n_contrib, n_trunc
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "the rasterizer backward (blend backward and per-Gaussian "
-            "gradient reduction) belongs to the training slice of the "
-            "PyTorch port and is not implemented yet")
+    @once_differentiable
+    def backward(ctx, g_image, g_T, _g_nc, _g_trunc):
+        attrs, bg, gauss_index, k_hi, final_T, n_contrib = ctx.saved_tensors
+        if g_image is None:
+            g_image = torch.zeros((3, *final_T.shape), dtype=torch.float32,
+                                  device=final_T.device)
+        g_image = g_image.float().contiguous()
+        d_bg = (final_T[None] * g_image).sum(dim=(1, 2))
+        # out = C + final_T * bg couples every alpha to bg, and final_T is
+        # an output of its own
+        bg_dot_g = bg[0] * g_image[0] + bg[1] * g_image[1] + bg[2] * g_image[2]
+        if g_T is not None:
+            bg_dot_g = bg_dot_g + g_T
+        grads = blend.blend_backward(
+            attrs, gauss_index, k_hi, ctx.origin, g_image,
+            bg_dot_g.contiguous(), final_T, n_contrib, ctx.consts)
+        rows = blend.reduce_slot_grads(grads, gauss_index, k_hi,
+                                       attrs.shape[0], *ctx.grad_cfg)
+        d_attrs = torch.cat([rows, rows.new_zeros((rows.shape[0], 1))], 1)
+        return (d_attrs, d_bg) + (None,) * 7
 
 
 def rasterize(means3d: torch.Tensor, opacities: torch.Tensor,
@@ -100,13 +129,15 @@ def rasterize(means3d: torch.Tensor, opacities: torch.Tensor,
         tile_h=cfg.tile_h, tile_w=cfg.tile_w, n_tx=n_tx,
         alpha_min=cfg.alpha_min, alpha_max=cfg.alpha_max,
         t_eps=cfg.transmittance_eps, ref_gate=cfg.ref_tile16_gate)
-    image, final_T, _ = _BlendFunction.apply(
+    grad_cfg = (cfg.grad_capacity, cfg.grad_budget,
+                cfg.page or blend.DEFAULT_PAGE)
+    image, final_T, _, n_grad_truncated = _BlendFunction.apply(
         prep.attrs10(), bg.float().contiguous(), bins.gauss_index,
-        bins.counts, origin, img_h, img_w, consts)
+        bins.counts, origin, img_h, img_w, consts, grad_cfg)
     return RenderOutput(
         image=image, final_T=final_T, radii=prep.radius,
         n_dropped_pairs=bins.n_dropped_pairs, n_truncated=bins.n_truncated,
-        n_grad_truncated=torch.zeros((), dtype=torch.int32, device=dev))
+        n_grad_truncated=n_grad_truncated)
 
 
 def mark_visible(means3d: torch.Tensor, cam: CameraParams,

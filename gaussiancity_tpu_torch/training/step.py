@@ -1,0 +1,299 @@
+# -*- coding: utf-8 -*-
+"""GAN training step (counterpart of ``gaussiancity_tpu/training/step.py``;
+upstream core/train.py:30-397).
+
+One step with a shared render, as in the JAX package:
+
+  render:  point features -> generator -> 14-channel Gaussians ->
+           rasterize the crop window -> flips            (graph kept)
+  D step:  D(fake.detach()), D(real) -> N+1 GAN loss -> Adam, with the
+           learning rate d_lr * min(1, k / n_warmup_iters) at the k-th D
+           update (k = 0 first, so the first D update has lr 0, as
+           optax's schedule count gives)
+  G step:  D(fake) (D's parameters frozen: no gradient reaches them) ->
+           L1 * 10 + VGG * 10 + GAN * 0.5 -> backward through the render
+           -> Adam
+
+Spectral-norm state is updated on all three D applications.  Adam is
+``torch.optim.Adam``, whose update equals optax's ``adam``.
+
+Batch layout (batch size 1, tensors on the trainer's device, NHWC images
+as in the JAX package):
+
+  pts [1, N, 9] (abs_xyz 0:3, scale 3, instance 4, rel_xyz 5:8, batch 8),
+  pts_mask [1, N], rgb [1, Hc, Wc, 3] in [-1, 1], seg [1, Hc, Wc, n_cls],
+  msk [1, Hc, Wc, 1], proj_hf [1, P, P, 1], proj_seg [1, P, P, n_cls],
+  optional proj_tlp [1, 2], cam_pos [1, 3], cam_quat [1, 4] (xyzw),
+  crp_xy [1, 2] int crop origin (x, y) in the flipped frame.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from gaussiancity_tpu_torch.camera import CameraModel
+from gaussiancity_tpu_torch.config import Config
+from gaussiancity_tpu_torch.device import resolve_device
+from gaussiancity_tpu_torch.losses import gan_loss, masked_l1
+from gaussiancity_tpu_torch.losses.perceptual import (
+    PerceptualLoss, check_vgg_weights, load_vgg19_npz)
+from gaussiancity_tpu_torch.models.discriminator import Discriminator
+from gaussiancity_tpu_torch.models.generator import Generator
+from gaussiancity_tpu_torch.ops.rasterizer import rasterize_points14
+from gaussiancity_tpu_torch.utils import helpers
+
+@contextlib.contextmanager
+def _frozen(module: torch.nn.Module):
+    """Parameters of ``module`` take no gradient inside the block."""
+    flags = [p.requires_grad for p in module.parameters()]
+    module.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p, f in zip(module.parameters(), flags):
+            p.requires_grad_(f)
+
+
+class Trainer:
+    """Owns the generator, discriminator, perceptual loss, both Adams and
+    the step count, on ``device`` (the card unless the caller asks for the
+    CPU).  Weights are drawn from ``torch.Generator().manual_seed(seed)``;
+    ``stage_ms`` collects per-stage wall times when ``time_stages`` is set
+    (the device is synchronised at each stage boundary)."""
+
+    def __init__(self, cfg: Config, device=None, seed: int = 0):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        ds, tr = cfg.dataset, cfg.train
+        vgg_npz = check_vgg_weights(tr.perceptual_loss_factor,
+                                    tr.allow_random_vgg)
+        gen = torch.Generator().manual_seed(seed)
+        self.generator = Generator(cfg.network, n_classes=ds.n_classes,
+                                   proj_size=ds.proj_size)
+        self.generator.reset_parameters(gen)
+        self.use_disc = tr.discriminator.enabled
+        self.discriminator = None
+        if self.use_disc:
+            self.discriminator = Discriminator(
+                n_channel_base=cfg.network.dis_n_channel_base,
+                n_classes=ds.n_classes)
+            self.discriminator.reset_parameters(gen)
+        self.ploss = PerceptualLoss(network=tr.perceptual_loss_model,
+                                    layers=tr.perceptual_loss_layers,
+                                    weights=tr.perceptual_loss_weights)
+        self.ploss.model.reset_parameters(gen)
+        if vgg_npz is not None:
+            load_vgg19_npz(vgg_npz, self.ploss.model)
+        for m in (self.generator, self.discriminator, self.ploss):
+            if m is not None:
+                m.to(self.device)
+        self.camera = CameraModel(np.asarray(ds.cam_k).reshape(3, 3),
+                                  ds.sensor_size)
+        self.flip_lr = True
+        self.flip_ud = ds.flip_ud
+        self.train_crop_size = ds.train_crop_size  # (W, H)
+        self.test_crop_size = ds.test_crop_size
+        adam = dict(betas=tuple(tr.betas), eps=tr.eps)
+        self.g_opt = torch.optim.Adam(self.generator.parameters(),
+                                      lr=tr.generator.lr, **adam)
+        self.d_opt = (torch.optim.Adam(self.discriminator.parameters(),
+                                       lr=0.0, **adam)
+                      if self.use_disc else None)
+        self.step = 0
+        self.time_stages = False
+        self.stage_ms: Dict[str, List[float]] = {}
+
+    # ------------------------------------------------------------------
+    # timing
+    # ------------------------------------------------------------------
+
+    def _now(self) -> float:
+        if self.time_stages and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter()
+
+    def _record(self, stage: str, t0: float) -> float:
+        t1 = self._now()
+        if self.time_stages:
+            self.stage_ms.setdefault(stage, []).append((t1 - t0) * 1e3)
+        return t1
+
+    # ------------------------------------------------------------------
+    # forward helpers
+    # ------------------------------------------------------------------
+
+    def d_learning_rate(self, k: int) -> float:
+        """Learning rate of the k-th D update (0-based): the warm-up
+        ramp ``d_lr * min(1, k / n_warmup_iters)``."""
+        d = self.cfg.train.discriminator
+        return d.lr * min(1.0, k / d.n_warmup_iters)
+
+    def _point_features(self, batch, rng: Optional[torch.Generator]):
+        ds = self.cfg.dataset
+        pts = batch["pts"]
+        abs_xyz = pts[..., 0:3]
+        rel_xyz = pts[..., 5:8]
+        instances = pts[..., 4]
+        classes = helpers.instances_to_classes(
+            instances, ds.bldg_range, ds.bldg_facade_clsid,
+            ds.bldg_roof_clsid, ds.car_range, ds.car_clsid)
+        scales = pts[..., 3:4] * self.cfg.network.scale_factor
+        scales3 = helpers.get_point_scales(scales, classes,
+                                           ds.z_scale_special_classes)
+        return dict(
+            abs_xyz=abs_xyz, rel_xyz=rel_xyz, scales3=scales3,
+            onehots=helpers.get_one_hot(classes, ds.n_classes),
+            z=helpers.get_z(rng, instances, self.cfg.network.z_dim),
+            proj_uv=helpers.get_projection_uv(abs_xyz, batch.get("proj_tlp"),
+                                              ds.proj_size),
+            pts_mask=batch.get("pts_mask"))
+
+    def _render_fake(self, batch, feats, crop_size=None
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Generator -> 14-channel Gaussians -> rasterize the crop window
+        -> flips.  Returns ([1, Hc, Wc, 3] NHWC, rasterizer counters)."""
+        t0 = self._now()
+        attrs = self.generator(
+            feats["proj_uv"], feats["rel_xyz"], None, feats["onehots"],
+            feats["z"], batch.get("proj_hf"), batch.get("proj_seg"),
+            feats["pts_mask"])
+        gs_pts = helpers.get_gaussian_points(feats["abs_xyz"],
+                                             feats["scales3"], attrs)
+        if gs_pts.shape[0] != 1:
+            raise ValueError("the train step takes batch size 1")
+        t0 = self._record("generator", t0)
+        cam = self.camera.params_f32(batch["cam_pos"][0],
+                                     batch["cam_quat"][0])
+        # render only the crop window; crp_xy addresses the flipped image
+        Wc, Hc = crop_size or self.train_crop_size
+        W, H = self.camera.sensor_size
+        x, y = (int(v) for v in batch["crp_xy"][0].tolist())
+        x, y = min(max(x, 0), W - Wc), min(max(y, 0), H - Hc)
+        xw = W - x - Wc if self.flip_lr else x
+        yw = H - y - Hc if self.flip_ud else y
+        mask = feats["pts_mask"]
+        out = rasterize_points14(
+            gs_pts[0], cam, self.cfg.rasterizer,
+            valid=mask[0] if mask is not None else None,
+            window=(xw, yw, Wc, Hc))
+        img = out.image
+        if self.flip_lr:
+            img = img.flip(-1)
+        if self.flip_ud:
+            img = img.flip(-2)
+        diag = {"RasterDroppedPairs": out.n_dropped_pairs,
+                "RasterTruncated": out.n_truncated,
+                "RasterGradTruncated": out.n_grad_truncated}
+        self._record("render", t0)
+        return img.permute(1, 2, 0)[None], diag
+
+    # ------------------------------------------------------------------
+    # train / eval
+    # ------------------------------------------------------------------
+
+    def train_step(self, batch: Dict[str, torch.Tensor],
+                   rng: Optional[torch.Generator] = None
+                   ) -> Dict[str, torch.Tensor]:
+        """One D + G update.  Returns the metrics as 0-dim tensors on the
+        device.  After the step, each parameter's ``.grad`` holds this
+        step's gradient (D's from the D loss only)."""
+        tr = self.cfg.train
+        feats = self._point_features(batch, rng)
+        gan_w = batch["msk"][:, ::4, ::4, :]  # nearest 0.25x
+        fake, metrics = self._render_fake(batch, feats)
+        t0 = self._now()
+        if self.use_disc:
+            D = self.discriminator
+            for group in self.d_opt.param_groups:
+                group["lr"] = self.d_learning_rate(self.step)
+            self.d_opt.zero_grad(set_to_none=True)
+            fake_out = D(fake.detach(), batch["seg"], batch["msk"])
+            real_out = D(batch["rgb"], batch["seg"], batch["msk"])
+            fake_l = gan_loss(fake_out["pred"], fake_out["label"], False,
+                              gan_w, dis_update=True)
+            real_l = gan_loss(real_out["pred"], real_out["label"], True,
+                              gan_w, dis_update=True)
+            loss_d = fake_l + real_l
+            loss_d.backward()
+            self.d_opt.step()
+            metrics.update(DisLoss=loss_d.detach(), GANLossFake=fake_l.detach(),
+                           GANLossReal=real_l.detach())
+        else:
+            zero = fake.new_zeros(())
+            metrics.update(DisLoss=zero, GANLossFake=zero, GANLossReal=zero)
+        t0 = self._record("d_step", t0)
+
+        if self.use_disc:
+            with _frozen(self.discriminator):
+                out = self.discriminator(fake, batch["seg"], batch["msk"])
+            gan = gan_loss(out["pred"], out["label"], True, gan_w,
+                           dis_update=False)
+        else:
+            gan = fake.new_zeros(())
+        l1 = masked_l1(fake, batch["rgb"], batch["msk"])
+        pl = self.ploss(fake * batch["msk"], batch["rgb"] * batch["msk"])
+        loss_g = (l1 * tr.l1_loss_factor + pl * tr.perceptual_loss_factor
+                  + gan * tr.gan_loss_factor)
+        t0 = self._record("g_loss", t0)
+        self.g_opt.zero_grad(set_to_none=True)
+        loss_g.backward()
+        t0 = self._record("backward", t0)
+        self.g_opt.step()
+        self._record("adam", t0)
+        self.step += 1
+        metrics.update(GenLoss=loss_g.detach(), L1Loss=l1.detach(),
+                       PerceptualLoss=pl.detach(), GANLoss=gan.detach())
+        return metrics
+
+    @torch.no_grad()
+    def eval_step(self, batch: Dict[str, torch.Tensor],
+                  rng: Optional[torch.Generator] = None
+                  ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """Render the test crop and its masked L1: (metrics, fake NHWC)."""
+        feats = self._point_features(batch, rng)
+        fake, diag = self._render_fake(batch, feats,
+                                       crop_size=self.test_crop_size)
+        l1 = masked_l1(fake, batch["rgb"], batch["msk"])
+        return {"L1Loss": l1, **diag}, fake
+
+    # ------------------------------------------------------------------
+    # state
+    # ------------------------------------------------------------------
+
+    def state_dict(self) -> Dict:
+        """G and D weights with the spectral-norm buffers, both Adam
+        states, the step and the VGG weights (the JAX package's train
+        state carries them too)."""
+        return {
+            "step": self.step,
+            "ploss": self.ploss.state_dict(),
+            "generator": self.generator.state_dict(),
+            "g_opt": self.g_opt.state_dict(),
+            "discriminator": (self.discriminator.state_dict()
+                              if self.use_disc else None),
+            "d_opt": self.d_opt.state_dict() if self.use_disc else None,
+        }
+
+    def load_state_dict(self, state: Dict) -> None:
+        self.step = int(state["step"])
+        self.ploss.load_state_dict(state["ploss"])
+        self.generator.load_state_dict(state["generator"])
+        self.g_opt.load_state_dict(state["g_opt"])
+        if self.use_disc:
+            self.discriminator.load_state_dict(state["discriminator"])
+            self.d_opt.load_state_dict(state["d_opt"])
+
+
+def make_train_step(trainer: Trainer):
+    """The step as a function of (batch, rng).  The port runs eagerly:
+    there is nothing to compile."""
+
+    def step(batch, rng: Optional[torch.Generator] = None):
+        return trainer.train_step(batch, rng)
+
+    return step

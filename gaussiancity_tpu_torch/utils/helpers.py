@@ -20,6 +20,21 @@ def get_one_hot(classes: torch.Tensor, n_class: int) -> torch.Tensor:
     return F.one_hot(classes.long(), n_class).float()
 
 
+def get_z(generator: Optional[torch.Generator], instances: torch.Tensor,
+          z_dim: Optional[int], max_instances: int = MAX_N_INSTANCES
+          ) -> Optional[torch.Tensor]:
+    """Per-point style codes: one N(0, 1) row per instance-id slot (id mod
+    ``max_instances``) of a table drawn from ``generator``, gathered to
+    the points.  instances [B, N] -> [B, N, z_dim], or None without
+    ``z_dim``.  The draws differ from ``jax.random``'s."""
+    if z_dim is None:
+        return None
+    dev = generator.device if generator is not None else instances.device
+    table = torch.randn((max_instances, z_dim), generator=generator,
+                        device=dev).to(instances.device)
+    return table[instances.long() % max_instances]
+
+
 def get_projection_uv(xyz: torch.Tensor, proj_tlp: Optional[torch.Tensor],
                       proj_size: float) -> torch.Tensor:
     """[-1, 1] uv of each point on the projection map. xyz: [B, N, 3]."""

@@ -7,13 +7,16 @@ has only the port's dependencies:
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_kernels.py
 
 The plain versions themselves are held to the JAX package by
-test_torch_rasterizer.py and test_torch_visibility.py."""
+test_torch_rasterizer.py (K1, K2 and the per-Gaussian use of K3),
+test_torch_models.py (the hash-grid use of K3) and
+test_torch_visibility.py (V1)."""
 
 import numpy as np
 import pytest
 import torch
 
 from gaussiancity_tpu_torch.camera import CameraModel
+from gaussiancity_tpu_torch.ops import hash_grid_bwd
 from gaussiancity_tpu_torch.ops import visibility as vis
 from gaussiancity_tpu_torch.ops.rasterizer import binning, blend, preprocess
 
@@ -22,6 +25,14 @@ pytestmark = pytest.mark.cuda
 # -fmad=false and IEEE expf / division keep the kernels' rounding equal to
 # the plain versions'; the tolerance leaves room for one ulp at the end
 KERNEL_ATOL = 1e-5
+# K2's per-pixel terms equal the plain version's; its sums over a tile's
+# pixels run in another order (warp shuffles, then warps in order, against
+# torch's reduction): tolerance relative to each gradient column's
+# largest magnitude
+K2_RTOL = 1e-4
+# K3 sums each run in sorted order, index_add_ in its own: relative to the
+# largest output magnitude
+K3_RTOL = 1e-5
 
 
 @pytest.fixture
@@ -97,6 +108,110 @@ def test_blend_kernel_rejects_mixed_devices(dev):
     with pytest.raises(ValueError):
         blend.blend_forward(attrs, idx, counts, (0, 0),
                             torch.zeros(3, device=dev), 32, 256, consts)
+
+
+K2_CASES = {
+    # n, (W, H), tile (h, w), capacity, gate, window (x0, y0, w, h)
+    "tiles8x128": (3000, (256, 64), (8, 128), 256, False, None),
+    "gate_window32": (3000, (256, 64), (32, 32), 256, True,
+                      (92, 12, 128, 32)),
+    "edge_tiles": (20000, (960, 540), (32, 32), 1024, True, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K2_CASES))
+def test_blend_backward_kernel_matches_plain(dev, case):
+    n, (W, H), (th, tw), K, gate, window = K2_CASES[case]
+    f = 0.8 * W
+    Kmat = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]])
+    cam = CameraModel(Kmat, (W, H)).params(
+        np.zeros(3), np.array([0.0, 0.0, 0.0, 1.0]), device=dev)
+    means, op, sc, qu, co = (torch.from_numpy(a).to(dev)
+                             for a in _scene(2, n, W, H, f))
+    prep = preprocess.preprocess(means, op, sc, qu, co,
+                                 torch.ones(n, dtype=torch.bool, device=dev),
+                                 cam)
+    origin = (0.0, 0.0)
+    bin_prep = prep
+    if window is not None:
+        x0, y0, W, H = window
+        origin = (float(x0), float(y0))
+        bin_prep = prep._replace(mx=prep.mx - x0, my=prep.my - y0)
+    bins = binning.bin_gaussians(bin_prep, H, W, th, tw, K, gate16=gate,
+                                 gate_origin=origin if window else None)
+    _, n_tx = binning.tile_grid(H, W, th, tw)
+    consts = blend.BlendConsts(tile_h=th, tile_w=tw, n_tx=n_tx,
+                               ref_gate=gate)
+    attrs = prep.attrs10()
+    bg = torch.tensor([0.3, 0.1, 0.6], device=dev)
+    _, final_T, n_contrib = blend.blend_forward(
+        attrs, bins.gauss_index, bins.counts, origin, bg, H, W, consts)
+    k_hi = blend.tile_k_hi(bins.counts, n_contrib, consts)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    g_out = torch.randn((3, H, W), generator=gen, device=dev)
+    bg_dot_g = torch.randn((H, W), generator=gen, device=dev)
+    args = (attrs, bins.gauss_index, k_hi, origin, g_out, bg_dot_g, final_T,
+            n_contrib, consts)
+    n0 = blend.blend_backward.launches
+    got = blend.blend_backward(*args)
+    again = blend.blend_backward(*args)
+    assert blend.blend_backward.launches == n0 + 2
+    want = blend.blend_backward_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)  # no atomics
+    scale = want.abs().amax(dim=0)
+    assert (scale > 0).all()
+    assert ((got - want).abs() <= K2_RTOL * scale).all()
+    # rows past each tile's k_hi are zero
+    k = torch.arange(K, device=dev)
+    dead = (k[None, :] >= k_hi[:, None].long()).reshape(-1)
+    assert dead.any() and (got[dead] == 0).all()
+    if case == "edge_tiles":
+        assert H % th != 0
+
+
+def test_segment_sum_kernel_matches_index_add(dev):
+    rng = np.random.default_rng(4)
+    L, M, C, R = 4, 50000, 8, 3000
+    keys = rng.integers(0, R + 200, (L, M))  # duplicates and keys >= R
+    keys[1] = R + 5  # a level whose keys all fall outside the table
+    keys[2, :M // 2] = 17  # one long run
+    keys = np.sort(keys, axis=1).astype(np.int32)
+    rows = rng.normal(size=(L, M, C)).astype(np.float32)
+    tk, tr = torch.from_numpy(keys).to(dev), torch.from_numpy(rows).to(dev)
+    n0 = hash_grid_bwd.segment_sum_sorted.launches
+    got = hash_grid_bwd.segment_sum_sorted(tk, tr, R)
+    again = hash_grid_bwd.segment_sum_sorted(tk, tr, R)
+    assert hash_grid_bwd.segment_sum_sorted.launches == n0 + 2
+    want = hash_grid_bwd.segment_sum_sorted_plain(tk, tr, R)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)  # no atomics: bit-equal repeat
+    assert (got[1] == 0).all()
+    untouched = torch.ones((L, R), dtype=torch.bool, device=dev)
+    for lvl in range(L):
+        k = tk[lvl].long()
+        untouched[lvl, k[k < R]] = False
+    assert untouched.any() and (got[untouched] == 0).all()
+    assert ((got - want).abs() <= K3_RTOL * want.abs().max()).all()
+
+
+def test_segment_sum_callers_match_cpu(dev):
+    rng = np.random.default_rng(5)
+    keys = torch.from_numpy(rng.integers(0, 700, 20000))
+    rows = torch.from_numpy(rng.normal(size=(20000, 9)).astype(np.float32))
+    got = hash_grid_bwd.reduce_rows(keys.to(dev), rows.to(dev), 600)
+    want = hash_grid_bwd.reduce_rows(keys, rows, 600)
+    torch.testing.assert_close(got.cpu(), want, rtol=0,
+                               atol=K3_RTOL * float(want.abs().max()))
+    L, NC, N, C, R = 3, 32, 2000, 8, 4096
+    idx = torch.from_numpy(rng.integers(0, R, (L, NC, N)))
+    w = torch.from_numpy(rng.random((L, NC, N)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(L, N, C)).astype(np.float32))
+    got = hash_grid_bwd.hash_grad_embeddings(idx.to(dev), w.to(dev),
+                                             g.to(dev), R)
+    want = hash_grid_bwd.hash_grad_embeddings(idx, w, g, R)
+    torch.testing.assert_close(got.cpu(), want, rtol=0,
+                               atol=K3_RTOL * float(want.abs().max()))
 
 
 def _city_volume():

@@ -62,6 +62,40 @@ class TestHashGrid:
                                    rtol=RTOL)
         assert np.abs(np.asarray(want)).max() > 0.1
 
+    @pytest.mark.parametrize("case", sorted(GRID_CASES))
+    def test_gradients_match_jax_vjp(self, case):
+        """Embedding and input gradients against the JAX custom VJP (its
+        CPU scatter path): the embedding gradient through the sorted
+        segment sum, the input gradient through the multilinear chain."""
+        D, L, base, desired, log2 = GRID_CASES[case]
+        shape = hash_grid.table_shape(D, L, base, desired, log2, 2)
+        rng = np.random.default_rng(3)
+        emb = rng.uniform(-1, 1, shape).astype(np.float32)
+        x = rng.uniform(-1.05, 1.05, (300, D)).astype(np.float32)
+        w_out = rng.normal(size=(300, L * 2)).astype(np.float32)
+
+        def jloss(xj, ej):
+            return jnp.sum(jhash.hash_encode(xj, ej, D, L, base, desired,
+                                             log2) * w_out)
+
+        want_x, want_e = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(x),
+                                                         jnp.asarray(emb))
+        tx = torch.from_numpy(x).requires_grad_(True)
+        te = torch.from_numpy(emb).requires_grad_(True)
+        (hash_grid.hash_encode(tx, te, D, L, base, desired, log2)
+         * torch.from_numpy(w_out)).sum().backward()
+        for got, want in ((tx.grad, want_x), (te.grad, want_e)):
+            want = np.asarray(want)
+            assert np.abs(want).max() > 0.1
+            # the input gradient sums 2^D corner terms per level, scaled
+            # by the level's resolution (up to 63 here): 10x the forward's
+            # absolute tolerance
+            np.testing.assert_allclose(got.numpy(), want, atol=ATOL * 10,
+                                       rtol=RTOL)
+        # out-of-bound points take no gradient
+        oob = (np.abs(x) > 1).any(-1)
+        assert oob.any() and (tx.grad.numpy()[oob] == 0).all()
+
     def test_hash_wraps_like_uint32(self):
         # products of large lattice coordinates and the primes overflow
         # 32 bits; the int64 emulation must keep exactly the low 32 bits
@@ -164,7 +198,7 @@ class TestGenerator:
                                             "proj_size": 32}})
         path = str(tmp_path / "rest.pt")
         interop.save_generator(path, gen.state_dict(), cfg)
-        gen2, cfg2 = interop.load_generator(path)
+        gen2, cfg2 = interop.load_generator(path, device="cpu")
         assert cfg2 == cfg
         with torch.no_grad():
             a, b = gen(*targs), gen2(*targs)

@@ -34,7 +34,7 @@ def np_camera(W=256, H=64, f=100.0):
     K = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]], np.float64)
     pose = (np.zeros(3), np.array([0.0, 0.0, 0.0, 1.0]))
     return (JCameraModel(K, (W, H)).params(*pose),
-            CameraModel(K, (W, H)).params(*pose))
+            CameraModel(K, (W, H)).params(*pose, device="cpu"))
 
 
 def np_scene(seed, n=256, depth_range=(4.0, 40.0), opacity_max=0.9):
@@ -90,7 +90,7 @@ class TestCameraAndPreprocess:
             q = rng.normal(size=4)
             q /= np.linalg.norm(q)
             pos = rng.normal(size=3) * 10
-            j, t = jm.params(pos, q), tm.params(pos, q)
+            j, t = jm.params(pos, q), tm.params(pos, q, device="cpu")
             for name in ("view_matrix", "full_proj", "cam_pos"):
                 np.testing.assert_allclose(
                     getattr(t, name).numpy(), np.asarray(getattr(j, name)),
@@ -347,13 +347,18 @@ class TestRasterize:
                                    atol=1e-5)
 
     def test_gradient_raises(self):
+        # the blend backward is once-differentiable: a second derivative
+        # through the render raises
         _, tcam = np_camera(W=128, H=32)
         means, op, sc, qu, co = torch_args(np_scene(6, n=32))
         co.requires_grad_(True)
         out = rasterize(means, op, sc, qu, co, tcam,
                         RasterizerConfig(tile_h=8, tile_w=128))
-        with pytest.raises(NotImplementedError, match="training slice"):
-            out.image.sum().backward()
+        (g,) = torch.autograd.grad((out.image ** 2).sum(), co,
+                                   create_graph=True)
+        assert g.abs().max() > 0
+        with pytest.raises(RuntimeError, match="differentiate twice"):
+            g.sum().backward()
 
     def test_wrapper_flips(self):
         from gaussiancity_tpu.ops.rasterizer import (
@@ -377,3 +382,121 @@ class TestRasterize:
         _, tcam = np_camera(W=128, H=32)
         vis = mark_visible(torch.from_numpy(scene[0]), tcam)
         np.testing.assert_array_equal(vis.numpy(), scene[0][:, 0] > 0.2)
+
+
+# float32 sums over pixels and slots taken in another order than XLA's:
+# tolerance relative to each gradient's largest magnitude
+GRAD_RTOL = 2e-5
+
+GRAD_CASES = {
+    # scene, tiles, window, ref gate, background
+    "tiles8x128_bg": (lambda: np_scene(3, n=256), dict(tile_h=8, tile_w=128),
+                      None, False, True),
+    "gate_window32": (lambda: np_scene(3, n=256), dict(tile_h=32, tile_w=32),
+                      (92, 12, 128, 32), True, True),
+    "dense_gate": (lambda: np_scene(4, n=384, opacity_max=0.99),
+                   dict(tile_h=8, tile_w=128), None, True, False),
+}
+
+
+class TestRasterizeGradients:
+    @pytest.mark.parametrize("case", sorted(GRAD_CASES))
+    def test_matches_jax_grad(self, case):
+        import jax
+
+        make, tiles, window, gate, with_bg = GRAD_CASES[case]
+        jcam, tcam = np_camera()
+        scene = make()
+        kw = dict(tile_capacity=512, ref_tile16_gate=gate, **tiles)
+        jcfg = JRasterizerConfig(max_tiles_per_gaussian=64, backend="xla",
+                                 **kw)
+        rng = np.random.default_rng(1)
+        H, W = (64, 256) if window is None else (window[3], window[2])
+        w_img = rng.normal(size=(3, H, W)).astype(np.float32)
+        w_T = rng.normal(size=(H, W)).astype(np.float32)
+        bg = (np.float32([0.2, 0.4, 0.8]) if with_bg
+              else np.zeros(3, np.float32))
+
+        def jloss(*args):
+            out = jrasterize(*args[:5], jcam, jcfg, bg=args[5],
+                             window=window)
+            return jnp.sum(out.image * w_img) + jnp.sum(out.final_T * w_T)
+
+        want = jax.grad(jloss, argnums=tuple(range(6)))(
+            *jax_args(scene), jnp.asarray(bg))
+        targs = [a.requires_grad_(True)
+                 for a in torch_args(scene) + [torch.from_numpy(bg)]]
+        out = rasterize(*targs[:5], tcam, RasterizerConfig(**kw),
+                        bg=targs[5], window=window)
+        loss = ((out.image * torch.from_numpy(w_img)).sum()
+                + (out.final_T * torch.from_numpy(w_T)).sum())
+        loss.backward()
+        assert int(out.n_grad_truncated) == 0
+        for name, w, t in zip(("means", "opacities", "scales", "quats",
+                               "colors", "bg"), want, targs):
+            w = np.asarray(w)
+            assert np.abs(w).max() > 0, name
+            np.testing.assert_allclose(t.grad.numpy(), w, rtol=0,
+                                       atol=GRAD_RTOL * np.abs(w).max(),
+                                       err_msg=name)
+
+    @pytest.mark.parametrize("capacity,budget", [(0, 48), (32, 0), (24, 64)])
+    def test_truncated_backward_matches_pallas(self, capacity, budget):
+        """n_grad_truncated and the bounded per-Gaussian gradient against
+        the JAX package's blend_gathered (Pallas, interpret mode) at page
+        16, on a tile-aligned image where both count the same pixels.
+        Without a budget the capacity is a whole number of pages: there
+        the JAX package reduces whole pages, past a capacity that is not,
+        while the port reduces exactly the slots its count keeps."""
+        import jax
+
+        th, tw, K, page = 8, 128, 64, 16
+        prep, bins, H, W, n_tx, origin = _blend_inputs(
+            crowded_scene(n=160), th, tw, K, False, None)
+        jconsts = jblend.BlendConsts(tile_h=th, tile_w=tw, n_tx=n_tx,
+                                     backend="pallas")
+        attrs16 = prep.attrs16()
+        idx, counts = bins.gauss_index, bins.counts
+        bg = jnp.asarray([0.3, 0.1, 0.6])
+        rng = np.random.default_rng(2)
+        g_img = rng.normal(size=(3, H, W)).astype(np.float32)
+        g_T = rng.normal(size=(H, W)).astype(np.float32)
+        n_ty = idx.shape[0] // n_tx
+
+        def to_tiles(x):  # [C, H, W] -> [T, TH, TW, C]
+            C = x.shape[0]
+            return jnp.asarray(x.reshape(C, n_ty, th, n_tx, tw).transpose(
+                1, 3, 2, 4, 0).reshape(n_ty * n_tx, th, tw, C))
+
+        def fwd(a16):
+            return jblend.blend_gathered(
+                jconsts, capacity, budget, page, a16,
+                idx.astype(jnp.float32), counts.astype(jnp.float32),
+                jnp.zeros(2), bg)
+
+        (_, _, j_trunc), vjp = jax.vjp(fwd, attrs16)
+        (d16,) = vjp((to_tiles(g_img), to_tiles(g_T[None])[..., 0],
+                      np.zeros((), jax.dtypes.float0)))
+
+        consts = blend.BlendConsts(tile_h=th, tile_w=tw, n_tx=n_tx)
+        t_attrs = torch.from_numpy(np.array(attrs16[:, :10]))
+        t_idx = torch.from_numpy(np.array(idx))
+        t_counts = torch.from_numpy(np.array(counts))
+        t_bg = torch.from_numpy(np.array(bg))
+        _, final_T, n_contrib = blend.blend_forward(
+            t_attrs, t_idx, t_counts, origin, t_bg, H, W, consts)
+        k_hi = blend.tile_k_hi(t_counts, n_contrib, consts)
+        trunc = blend.grad_trunc_count(k_hi, capacity, budget, K, page)
+        assert int(trunc) == int(j_trunc) > 0
+        g_image = torch.from_numpy(g_img)
+        bg_dot_g = (t_bg[0] * g_image[0] + t_bg[1] * g_image[1]
+                    + t_bg[2] * g_image[2] + torch.from_numpy(g_T))
+        slots = blend.blend_backward(t_attrs, t_idx, k_hi, origin, g_image,
+                                     bg_dot_g, final_T, n_contrib, consts)
+        rows = blend.reduce_slot_grads(slots, t_idx, k_hi,
+                                       t_attrs.shape[0], capacity, budget,
+                                       page)
+        want = np.asarray(d16)[:, :9]
+        assert np.abs(want).max() > 0
+        np.testing.assert_allclose(rows.numpy(), want, rtol=0,
+                                   atol=GRAD_RTOL * np.abs(want).max())
