@@ -28,7 +28,22 @@ Phases, each of which fails the run if it fails:
 9. train the REST generator at the REST recipe's full widths through
    ``Trainer.train_step`` (2 warm-up steps, then 5 timed steps with the
    launch counts set to 0 just before them): finite losses, changed
-   weights, ``RasterGradTruncated`` 0, and K1, K2 and K3 on every step.
+   weights, ``RasterGradTruncated`` 0, and K1, K2, K3 and G1 on every
+   step;
+10. render a small REST + BLDG (PTv3) trajectory on the compact path on
+    the card and on the CPU and compare the frames;
+11. render the two-model frame at full widths (REST recipe seed 0, BLDG
+    recipe seed 1, budgets REST 196,608 and BLDG 65,536, the style table
+    of the BLDG model's width) through ``render_trajectory`` (warm-up
+    pass, whose first frame's hash-grid inputs are kept, then a timed pass
+    with the launch counts set to 0): content, a non-empty BLDG bucket and
+    K1, V1 and G1 on every frame, the stage split per model;
+12. hold the hash-grid forward (G1) against its plain version on the REST
+    bucket of that frame and on the train step's 16,384 points (checked
+    right after the capture, before the timed train steps), twice
+    (bit-equal);
+13. drive the row-gather probe (K4) at its shape, count set to 0 just
+    before, and hold K4 against its plain version (bit-equal repeat).
 
 The perceptual loss runs on seeded random VGG19 weights (the repository
 holds no converted ImageNet weights) behind the JAX package's opt-in gate,
@@ -83,6 +98,13 @@ K3_RTOL = 1e-5
 # largest gradient
 STEP_LOSS_RTOL = 1e-4
 STEP_GRAD_RTOL = 1e-3
+# G1: per-corner terms equal the plain version's, only the order of the
+# sum over the 2^D corners differs; K4: bf16 -> float32 is exact, the 8
+# channel adds run in another order; both relative to the largest output
+G1_RTOL = 1e-6
+K4_RTOL = 1e-6
+# the JAX package's two-model frame (bench.py:373-417)
+FRAME_BUDGETS = {"REST": 196608, "BLDG": 65536}
 TRAIN_POINTS = 16384  # the REST recipe's train_max_points
 MATCH_SHARE = 0.999  # n_contrib and voxel ids: share of pixels equal
 N_BLEND_GAUSSIANS = 400_000  # Gaussians of K1's seeded test scene
@@ -94,7 +116,9 @@ def log(msg: str) -> None:
 
 def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean time of ``fn`` on the card over ``iters`` runs (CUDA events,
-    after ``warmup`` runs)."""
+    after ``warmup`` runs).  The runs are queued behind a ~5 ms device
+    sleep, so that a kernel shorter than its host-side launch is timed on
+    the device and not at the host's launch rate."""
     import torch
 
     for _ in range(warmup):
@@ -102,6 +126,7 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(10_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -327,19 +352,13 @@ def phase_raycast(pipe, projections, poses) -> dict:
             "library_ms": None}
 
 
-def phase_small_reference():
-    """A small trajectory on the card (kernels) and on the CPU (plain
-    versions) with the same seeded weights: the frames must agree."""
-    import torch
-
+def small_config():
+    """The tiny REST config of the CPU tests (tests/test_inference.py)."""
     from gaussiancity_tpu_torch.config import (
         Config, DatasetConfig, GaussianNetworkConfig, PTv3Config,
         RasterizerConfig)
-    from gaussiancity_tpu_torch.inference.pipeline import (
-        InferencePipeline, get_orbit_camera_poses)
-    from gaussiancity_tpu_torch.models.generator import Generator
 
-    cfg = Config(
+    return Config(
         dataset=DatasetConfig(sensor_size=(128, 64), proj_size=64,
                               cam_k=(60.0, 0, 64.0, 0, 60.0, 32.0, 0, 0, 1)),
         network=GaussianNetworkConfig(
@@ -348,6 +367,10 @@ def phase_small_reference():
             hash_grid_map_size=8, mlp_hidden_dim=16,
             ptv3=PTv3Config(enabled=False)),
         rasterizer=RasterizerConfig(tile_capacity=128))
+
+
+def small_city():
+    """The tiny city of the CPU tests: two box buildings on a 64x64 map."""
     ins = np.ones((64, 64), np.int16)
     ins[10:20, 10:20] = 100
     ins[30:42, 30:44] = 102
@@ -357,6 +380,20 @@ def phase_small_reference():
         "TD_HF": td, "BU_HF": np.zeros((64, 64), np.int16),
         "PTS": np.ones((64, 64), bool)}}
     centers = {i: (32.0, 32.0, 64.0, 64.0, 20.0) for i in range(200)}
+    return projections, centers
+
+
+def phase_small_reference():
+    """A small trajectory on the card (kernels) and on the CPU (plain
+    versions) with the same seeded weights: the frames must agree."""
+    import torch
+
+    from gaussiancity_tpu_torch.inference.pipeline import (
+        InferencePipeline, get_orbit_camera_poses)
+    from gaussiancity_tpu_torch.models.generator import Generator
+
+    cfg = small_config()
+    projections, centers = small_city()
     poses = get_orbit_camera_poses(64, n_points=2, radius=30, altitude=30)
     frames = {}
     for dev in ("cuda", "cpu"):
@@ -376,41 +413,53 @@ def phase_small_reference():
               "small frame on the card disagrees with the CPU reference")
 
 
-def phase_frame(pipe, projections, centers, poses):
+def phase_frame(pipe, projections, centers, poses, style_lut=None,
+                what: str = "frame path", warmup=None):
+    """Warm-up pass (``warmup`` renders it when given), then a timed pass
+    with the kernels' launch counts set to 0 just before it."""
     import torch
 
+    from gaussiancity_tpu_torch.ops import hash_grid
     from gaussiancity_tpu_torch.ops import visibility as vis
     from gaussiancity_tpu_torch.ops.rasterizer import blend
 
     t0 = time.perf_counter()
-    warm = pipe.render_trajectory(projections, centers, poses)
-    log(f"frame path warm-up: {len(warm)} frames in "
-        f"{time.perf_counter() - t0:.2f} s")
+    if warmup is None:
+        warmup = lambda: pipe.render_trajectory(projections, centers, poses,
+                                                style_lut=style_lut)
+    warmup()
+    log(f"{what} warm-up: {time.perf_counter() - t0:.2f} s")
     pipe.stage_ms.clear()
     pipe.frame_stats.clear()
     pipe._pts_fp = None  # rebuild the volume: the timed pass is complete
     torch.cuda.reset_peak_memory_stats()
     blend.blend_forward.launches = 0
     vis.raycast.launches = 0
+    hash_grid.hash_encode_fwd.launches = 0
     t0 = time.perf_counter()
-    frames = pipe.render_trajectory(projections, centers, poses)
+    frames = pipe.render_trajectory(projections, centers, poses,
+                                    style_lut=style_lut)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"blend_fwd": blend.blend_forward.launches,
-                "raycast": vis.raycast.launches}
+                "raycast": vis.raycast.launches,
+                "hash_encode_fwd": hash_grid.hash_encode_fwd.launches}
     n = len(poses)
-    log(f"frame path: {n} frames of {frames[0].shape} in {wall:.3f} s -> "
+    log(f"{what}: {n} frames of {frames[0].shape} in {wall:.3f} s -> "
         f"{wall / n * 1e3:.2f} ms/frame (set-up included); peak device "
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     for stage, ms in pipe.stage_ms.items():
-        log(f"  stage {stage:10s} " + " ".join(f"{m:9.2f}" for m in ms)
-            + f"   mean {sum(ms) / len(ms):9.2f} ms")
-    # per-frame stages (one entry per frame): extrude and volume are
-    # per-trajectory set-up
-    per_frame = [ms for ms in pipe.stage_ms.values() if len(ms) == n]
+        log(f"  stage {stage:14s} " + " ".join(f"{m:9.2f}" for m in ms)
+            + f"   mean {sum(ms) / len(ms):9.2f}"
+            f" median {float(np.median(ms)):9.2f} ms")
+    # per-frame stages (one entry per frame; generator_<model> splits the
+    # generator stage): extrude and volume are per-trajectory set-up
+    per_frame = [ms for stage, ms in pipe.stage_ms.items()
+                 if len(ms) == n and not stage.startswith("generator_")]
     frame_ms = [sum(col) for col in zip(*per_frame)]
     log("frame ms without set-up: " + " ".join(f"{m:.2f}" for m in frame_ms)
-        + f"   mean {sum(frame_ms) / n:.2f} ms")
+        + f"   mean {sum(frame_ms) / n:.2f} median "
+        f"{float(np.median(frame_ms)):.2f} ms")
     for i, (f, st) in enumerate(zip(frames, pipe.frame_stats)):
         log(f"  frame {i}: std {float(f.std()):.2f} {st}")
         check(f.shape == (540, 960, 3) and f.dtype == np.uint8,
@@ -422,7 +471,7 @@ def phase_frame(pipe, projections, centers, poses):
     return launches
 
 
-def phase_profile(pipe, projections, centers, poses):
+def phase_profile(pipe, projections, centers, poses, style_lut=None):
     """One more pass under torch.profiler: device time by kernel and the
     device's busy share of the per-frame wall time (``--profile``)."""
     import torch
@@ -431,7 +480,7 @@ def phase_profile(pipe, projections, centers, poses):
     from gaussiancity_tpu_torch.inference.pipeline import frame_to_uint8
 
     # per-trajectory set-up outside the window: only the frames are traced
-    state = pipe.prepare(projections, centers)
+    state = pipe.prepare(projections, centers, style_lut)
     with torch.inference_mode():
         frame_to_uint8(pipe.render_pose(state[0], centers, *state[1:],
                                         poses[0])[0])
@@ -490,38 +539,47 @@ def rest_train_config():
     return cfg.replace(train=cfg.train.replace(allow_random_vgg=True))
 
 
-def capture_step_inputs(trainer, batch):
-    """One train step, keeping the arguments of its K2 call and of its
-    two K3 calls (the hash-grid and the per-Gaussian use)."""
+def capture_calls(targets, fn) -> dict:
+    """Run ``fn`` with each (module, name) of ``targets`` wrapped to keep
+    the (detached) arguments of every call, by name."""
     import torch
 
-    from gaussiancity_tpu_torch.ops import hash_grid_bwd
+    captured = {name: [] for _, name in targets}
+    originals = [(mod, name, getattr(mod, name)) for mod, name in targets]
+
+    def wrap(name, fn_orig):
+        def rec(*args):
+            captured[name].append(tuple(
+                a.detach() if isinstance(a, torch.Tensor) else a
+                for a in args))
+            return fn_orig(*args)
+        # a wrapper counts the launches made under its name: the real
+        # counts see none of these
+        rec.launches = 0
+        return rec
+
+    for mod, name, fn_orig in originals:
+        setattr(mod, name, wrap(name, fn_orig))
+    try:
+        fn()
+    finally:
+        for mod, name, fn_orig in originals:
+            setattr(mod, name, fn_orig)
+    return captured
+
+
+def capture_step_inputs(trainer, batch):
+    """One train step, keeping the arguments of its K2 call, of its two K3
+    calls (the hash-grid and the per-Gaussian use) and of its G1 call."""
+    from gaussiancity_tpu_torch.ops import hash_grid, hash_grid_bwd
     from gaussiancity_tpu_torch.ops.rasterizer import blend
 
-    captured = {"segment_sum": []}
-    bwd, seg = blend.blend_backward, hash_grid_bwd.segment_sum_sorted
-
-    def detached(args):
-        return tuple(a.detach() if isinstance(a, torch.Tensor) else a
-                     for a in args)
-
-    def bwd_rec(*args):
-        captured["blend_bwd"] = detached(args)
-        return bwd(*args)
-
-    def seg_rec(*args):
-        captured["segment_sum"].append(detached(args))
-        return seg(*args)
-
-    # the wrappers count their launches on their own names
-    bwd_rec.launches = seg_rec.launches = 0
-    blend.blend_backward = bwd_rec
-    hash_grid_bwd.segment_sum_sorted = seg_rec
-    try:
-        trainer.train_step(batch)
-    finally:
-        blend.blend_backward = bwd
-        hash_grid_bwd.segment_sum_sorted = seg
+    captured = capture_calls(
+        [(blend, "blend_backward"), (hash_grid_bwd, "segment_sum_sorted"),
+         (hash_grid, "hash_encode_fwd")],
+        lambda: trainer.train_step(batch))
+    captured["blend_bwd"] = captured.pop("blend_backward")[-1]
+    captured["segment_sum"] = captured.pop("segment_sum_sorted")
     return captured
 
 
@@ -642,6 +700,217 @@ def phase_grad_kernels(captured):
     return [k2, k3]
 
 
+def phase_small_two_model(devices=("cuda", "cpu")):
+    """A small REST + BLDG (PTv3) trajectory on the compact path, on the
+    card (kernels) and on the CPU (plain versions), from the same seeded
+    weights: the frames must agree."""
+    import torch
+
+    from gaussiancity_tpu_torch.config import (GaussianNetworkConfig,
+                                               PTv3Config)
+    from gaussiancity_tpu_torch.inference.pipeline import (
+        InferencePipeline, get_orbit_camera_poses, get_style_lut)
+    from gaussiancity_tpu_torch.models.generator import Generator
+
+    cfg = small_config()
+    # the small PTv3 of the JAX suite (tests/test_ptv3.py:94-104)
+    bldg_net = GaussianNetworkConfig(
+        scale_factor=0.65, encoder=None, encoder_out_dim=3,
+        pos_emd="SIN_COS", sin_cos_freq_bends=2, z_dim=16, mlp_hidden_dim=32,
+        ptv3=PTv3Config(
+            order=("cord",), stride=(2, 2), enc_depths=(1, 1, 1),
+            enc_channels=(8, 16, 32), enc_n_head=(1, 2, 4),
+            enc_patch_size=(32, 32, 32), dec_depths=(1, 1),
+            dec_channels=(8, 16), dec_n_head=(1, 2),
+            dec_patch_size=(32, 32), mlp_ratio=2.0))
+    projections, centers = small_city()
+    lut = get_style_lut(centers, 16, seed=0)
+    poses = get_orbit_camera_poses(64, n_points=6, radius=30,
+                                   altitude=30)[1:3]
+    frames, stats = [], []
+    for dev in devices:
+        models = {}
+        for name, net, seed in (("REST", cfg.network, 5),
+                                ("BLDG", bldg_net, 6)):
+            models[name] = Generator(net, n_classes=8, proj_size=64)
+            models[name].reset_parameters(torch.Generator().manual_seed(seed))
+        pipe = InferencePipeline(cfg, models, max_points=4096,
+                                 vol_shape=(72, 72, 24),
+                                 class_budgets={"REST": 2048, "BLDG": 2048},
+                                 device=dev)
+        frames.append(pipe.render_trajectory(projections, centers, poses,
+                                             style_lut=lut))
+        stats.append([(st["n_REST"], st["n_BLDG"])
+                      for st in pipe.frame_stats])
+    for a, b, (n_rest, n_bldg) in zip(*frames, stats[0]):
+        d = np.abs(a.astype(int) - b.astype(int))
+        log(f"small two-model frame card vs CPU: equal "
+            f"{float((d == 0).mean()):.5f}, within 1 "
+            f"{float((d <= 1).mean()):.5f}, max {int(d.max())}, std "
+            f"{float(a.std()):.2f}, buckets REST {n_rest} BLDG {n_bldg}")
+        check(n_bldg > 0, "the small two-model frame has no BLDG point")
+        check((d <= 1).mean() >= 0.99 and a.std() > 1,
+              "small two-model frame on the card disagrees with the CPU")
+    check(stats[0] == stats[1],
+          "the card and the CPU fed the generators different points")
+
+
+def two_model_pipeline(cfg, device):
+    """The JAX package's two-model frame (bench.py:373-417): the REST and
+    BLDG recipes at full widths, seeded, on the compact path."""
+    import torch
+
+    from gaussiancity_tpu_torch.config import bldg_recipe
+    from gaussiancity_tpu_torch.inference.pipeline import InferencePipeline
+    from gaussiancity_tpu_torch.models.generator import Generator
+
+    models = {}
+    for name, net, seed in (("REST", cfg.network, 0),
+                            ("BLDG", bldg_recipe().network, 1)):
+        models[name] = Generator(net, n_classes=cfg.dataset.n_classes,
+                                 proj_size=cfg.dataset.proj_size)
+        models[name].reset_parameters(torch.Generator().manual_seed(seed))
+    return InferencePipeline(cfg, models, max_points=sum(FRAME_BUDGETS.values()),
+                             vol_shape=(512, 512, 192),
+                             class_budgets=FRAME_BUDGETS, device=device)
+
+
+def phase_two_model_frame(pipe, projections, centers, poses, lut):
+    """The two-model frame: warm-up pass (keeping the first frame's
+    hash-grid inputs), timed pass, BLDG buckets non-empty."""
+    from gaussiancity_tpu_torch.ops import hash_grid
+
+    captured = {}
+
+    def warmup():
+        captured.update(capture_calls(
+            [(hash_grid, "hash_encode_fwd")],
+            lambda: pipe.render_trajectory(projections, centers, poses[:1],
+                                           style_lut=lut)))
+        pipe.render_trajectory(projections, centers, poses, style_lut=lut)
+
+    launches = phase_frame(pipe, projections, centers, poses, lut,
+                           what="two-model frame", warmup=warmup)
+    sizes = [(st["n_REST"], st["n_BLDG"]) for st in pipe.frame_stats]
+    log(f"two-model buckets (REST, BLDG) per frame: {sizes}")
+    for i, (_, n_bldg) in enumerate(sizes):
+        check(n_bldg > 0, f"two-model frame {i} has an empty BLDG bucket")
+    med = {stage: float(np.median(ms)) for stage, ms in pipe.stage_ms.items()
+           if len(ms) == len(poses)}
+    log("two-model frame stage medians (ms): " + json.dumps(
+        {k: round(v, 2) for k, v in med.items()}))
+    check(len(captured["hash_encode_fwd"]) == 1,
+          "the two-model frame must call the hash grid once")
+    return launches, captured["hash_encode_fwd"][0]
+
+
+def phase_g1(use: str, args) -> dict:
+    """G1 against its plain version on one captured use, twice; returns
+    its numbers for ``g1_entry``."""
+    import torch
+
+    from gaussiancity_tpu_torch.ops import hash_grid
+
+    inputs, emb = args[0], args[1]
+    N, D = inputs.shape
+    L, R_max, C = emb.shape
+    got = hash_grid.hash_encode_fwd(*args)
+    again = hash_grid.hash_encode_fwd(*args)
+    want = hash_grid.hash_encode_fwd_plain(*args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    log(f"G1 {use}: N={N} D={D} L={L} R_max={R_max} C={C}; vs plain "
+        f"max|d| {err:.3e} (max|out| {scale:.3e}); repeat bit-equal "
+        f"{torch.equal(got, again)}")
+    check(torch.equal(got, again), f"G1 ({use}) differs between runs")
+    check(scale > 0 and err <= G1_RTOL * scale,
+          f"G1 ({use}) differs from the plain version by more than "
+          f"{G1_RTOL} of its largest output")
+    ms = cuda_time_ms(lambda: hash_grid.hash_encode_fwd(*args))
+    plain_ms = cuda_time_ms(lambda: hash_grid.hash_encode_fwd_plain(*args),
+                            iters=5, warmup=1)
+    # bytes: every distinct table row this run's corners name, read once
+    # (whole 32-byte sectors), the inputs and the output once;
+    # operations: ~10 per corner and input dimension, 2 per channel
+    idx = hash_grid._level_geometry(inputs, D, *args[2:])[0]
+    n_rows = sum(int(torch.unique(idx[lvl]).numel()) for lvl in range(L))
+    row_bytes = -(-C * 4 // 32) * 32
+    n_bytes = n_rows * row_bytes + N * D * 4 + N * L * C * 4
+    n_ops = N * L * (1 << D) * (10 * D + 2 * C)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_FLOP_PER_S * 1e3
+    log(f"G1 {use}: {n_rows} distinct rows of {N * L << D} corner lookups "
+        f"({N * L * (1 << D) * row_bytes} B at one sector each)")
+    log(f"G1 {use}: {ms:.4f} ms, plain {plain_ms:.3f} ms; bound: {n_bytes} B"
+        f" -> {t_bytes:.5f} ms, {n_ops} ops -> {t_ops:.5f} ms")
+    return dict(ms=ms, plain_ms=plain_ms, err=err, t_bytes=t_bytes,
+                t_ops=t_ops)
+
+
+def g1_entry(results) -> dict:
+    """G1's line: its uses summed (ms, plain, bound), the worst error."""
+    tot = {k: sum(r[k] for r in results)
+           for k in ("ms", "plain_ms", "t_bytes", "t_ops")}
+    log("G1 line: the frame's REST bucket and the train step summed (ms, "
+        "plain, bound)")
+    return {"name": "hash_encode_fwd", "route": "cuda",
+            "source": "gaussiancity_tpu_torch/csrc/hash_encode_fwd.cu",
+            "replaces": "gaussiancity_tpu/ops/hash_grid.py:229 "
+                        "(_hash_encode_fwd, an XLA gather; no Pallas kernel)",
+            "max_abs_err": max(r["err"] for r in results), "ms": tot["ms"],
+            "plain_ms": tot["plain_ms"],
+            "bound_ms": max(tot["t_bytes"], tot["t_ops"]),
+            "bound_by": ("bytes" if tot["t_bytes"] >= tot["t_ops"]
+                         else "operations"),
+            "library_ms": None}
+
+
+def phase_k4(device) -> dict:
+    """The row-gather probe (K4) at its shape: a timed drive with the
+    count set to 0 just before it, then K4 against its plain version."""
+    import torch
+
+    from gaussiancity_tpu_torch.ops import gather_rowsum as gr
+
+    table, idx = gr.probe_inputs(seed=0, device=device)
+    gr.gather_rowsum.launches = 0
+    ms = cuda_time_ms(lambda: gr.gather_rowsum(table, idx))
+    launches = gr.gather_rowsum.launches
+    got = gr.gather_rowsum(table, idx)
+    again = gr.gather_rowsum(table, idx)
+    want = gr.gather_rowsum_plain(table, idx)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    log(f"K4 probe: table {tuple(table.shape)} {table.dtype}, idx "
+        f"{tuple(idx.shape)}; vs plain max|d| {err:.3e} (max|out| "
+        f"{scale:.3e}); repeat bit-equal {torch.equal(got, again)}; "
+        f"launches on the probe's timed drive {launches}")
+    check(torch.equal(got, again), "K4 differs between runs")
+    check(scale > 0 and err <= K4_RTOL * scale,
+          f"K4 differs from the plain version by more than {K4_RTOL} of its "
+          "largest output")
+    check(launches > 0, "the probe did not launch K4")
+    plain_ms = cuda_time_ms(lambda: gr.gather_rowsum_plain(table, idx))
+    # bytes: the distinct rows the indices name (16 bytes each), the
+    # indices and the sums once
+    M = idx.numel()
+    n_rows = int(torch.unique(idx.clamp(0, table.shape[0] - 1)).numel())
+    n_bytes = n_rows * 16 + M * 4 + M * 4
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = M * 15 / FP32_FLOP_PER_S * 1e3
+    log(f"K4: {ms:.5f} ms, plain {plain_ms:.4f} ms; bound: {n_bytes} B -> "
+        f"{t_bytes:.5f} ms, {M * 15} ops -> {t_ops:.6f} ms")
+    return {"name": "gather_rowsum", "route": "cuda",
+            "source": "gaussiancity_tpu_torch/csrc/gather_rowsum.cu",
+            "replaces": "scripts/bench_gather3.py:64",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "launches": launches}
+
+
 def tiny_train_config():
     """The JAX suite's tiny train config (tests/test_train_step.py) with a
     one-step D warm-up."""
@@ -713,7 +982,7 @@ def phase_train(trainer, batch, n_warm: int = 2, n_timed: int = 5):
     launch counts set to 0 just before them."""
     import torch
 
-    from gaussiancity_tpu_torch.ops import hash_grid_bwd
+    from gaussiancity_tpu_torch.ops import hash_grid, hash_grid_bwd
     from gaussiancity_tpu_torch.ops.rasterizer import blend
 
     def snapshot():
@@ -737,6 +1006,7 @@ def phase_train(trainer, batch, n_warm: int = 2, n_timed: int = 5):
     blend.blend_forward.launches = 0
     blend.blend_backward.launches = 0
     hash_grid_bwd.segment_sum_sorted.launches = 0
+    hash_grid.hash_encode_fwd.launches = 0
     step_ms = []
     for i in range(n_timed):
         before = snapshot()
@@ -761,11 +1031,13 @@ def phase_train(trainer, batch, n_warm: int = 2, n_timed: int = 5):
     trainer.time_stages = False
     launches = {"blend_fwd": blend.blend_forward.launches,
                 "blend_bwd": blend.blend_backward.launches,
-                "segment_sum": hash_grid_bwd.segment_sum_sorted.launches}
+                "segment_sum": hash_grid_bwd.segment_sum_sorted.launches,
+                "hash_encode_fwd": hash_grid.hash_encode_fwd.launches}
     log(f"launches on the {n_timed} timed steps: {launches}")
     check(launches["blend_fwd"] >= n_timed and launches["blend_bwd"]
-          >= n_timed and launches["segment_sum"] >= 2 * n_timed,
-          "K1, K2 and K3 must be launched on every train step")
+          >= n_timed and launches["segment_sum"] >= 2 * n_timed
+          and launches["hash_encode_fwd"] >= n_timed,
+          "K1, K2, K3 and G1 must be launched on every train step")
     med = float(np.median(step_ms))
     log(f"train step: median {med:.2f} ms of {n_timed} (stage timers "
         f"synchronise the device at each boundary); peak device memory "
@@ -820,8 +1092,9 @@ def main() -> int:
         return 2
     from gaussiancity_tpu_torch.config import rest_recipe
     from gaussiancity_tpu_torch.inference.pipeline import (
-        get_orbit_camera_poses)
+        get_orbit_camera_poses, get_style_lut)
 
+    profiling = "--profile" in sys.argv[1:]
     t_start = time.perf_counter()
     phase_build()
     card = phase_card()
@@ -837,10 +1110,22 @@ def main() -> int:
     pipe = city_pipeline(cfg, device)
     kernels.append(phase_raycast(pipe, projections, poses))
     phase_small_reference()
-    launches = phase_frame(pipe, projections, centers, poses)
-    if "--profile" in sys.argv[1:]:
+    timed = [phase_frame(pipe, projections, centers, poses)]
+    if profiling:
         phase_profile(pipe, projections, centers, poses)
     del pipe
+    torch.cuda.empty_cache()
+
+    phase_small_two_model()
+    lut = get_style_lut(centers, 256, seed=0)
+    pipe = two_model_pipeline(cfg, device)
+    launches, g1_frame_args = phase_two_model_frame(pipe, projections,
+                                                    centers, poses, lut)
+    timed.append(launches)
+    if profiling:
+        phase_profile(pipe, projections, centers, poses, lut)
+    g1 = [phase_g1("two-model frame, REST bucket", g1_frame_args)]
+    del pipe, g1_frame_args
     torch.cuda.empty_cache()
 
     from gaussiancity_tpu_torch.training.step import Trainer
@@ -850,14 +1135,23 @@ def main() -> int:
     trainer = Trainer(rest_train_config(), device=device, seed=0)
     batch = synthetic_rest_batch(trainer.cfg, TRAIN_POINTS, seed=1,
                                  device=device)
-    kernels += phase_grad_kernels(capture_step_inputs(trainer, batch))
+    captured = capture_step_inputs(trainer, batch)
+    kernels += phase_grad_kernels(captured)
+    g1.append(phase_g1("train step", captured["hash_encode_fwd"][0]))
+    kernels.append(g1_entry(g1))
+    del captured
     phase_small_train(device)
-    train_launches = phase_train(trainer, batch)
-    if "--profile" in sys.argv[1:]:
+    timed.append(phase_train(trainer, batch))
+    if profiling:
         phase_train_profile(trainer, batch)
-    launches.update(train_launches)
+    del trainer
+    torch.cuda.empty_cache()
+    kernels.append(phase_k4(device))
+    # launches on the timed passes: REST frame, two-model frame, train
+    # steps; K4's are those of its probe's timed drive
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        if "launches" not in k:
+            k["launches"] = sum(t.get(k["name"], 0) for t in timed)
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))

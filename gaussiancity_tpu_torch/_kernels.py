@@ -23,7 +23,8 @@ from typing import Dict, Iterable, Optional
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("blend_fwd", "blend_bwd", "segment_sum", "raycast")
+KERNELS = ("blend_fwd", "blend_bwd", "segment_sum", "raycast",
+           "hash_encode_fwd", "gather_rowsum")
 # -fmad=false: no fused multiply-adds, so the kernels round like their
 # plain PyTorch versions at the blend and DDA thresholds
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -31,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-fmad=false", "-Xptxas", "-v")
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+LL = ctypes.c_longlong
 _ARGTYPES = {
     # attrs, gauss_index, counts, bg, T, K, n_tx, tile_h, tile_w, img_h,
     # img_w, origin_x, origin_y, ref_gate, alpha_min, alpha_max, t_eps,
@@ -47,6 +49,11 @@ _ARGTYPES = {
     # volume, h, w, d, rays (origin, up, side, fwd), H, W, cy, cx, f,
     # ztop, voxel_id, depth, stream
     "raycast": [P, I, I, I, P, I, I, F, F, F, F, P, P, P],
+    # inputs, table, level params, N, D, L, R_max, C, bound, 2 * bound,
+    # out, stream
+    "hash_encode_fwd": [P, P, P, I, I, I, I, I, F, F, P, P],
+    # table, idx, R, M, out, stream
+    "gather_rowsum": [P, P, I, LL, P, P],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

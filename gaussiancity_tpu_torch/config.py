@@ -329,3 +329,27 @@ def rest_recipe(dataset: str = "GOOGLE_EARTH") -> Config:
     )
     return Config(exp_name="REST", dataset=ds, network=net,
                   rasterizer=RasterizerConfig(grad_budget=65536))
+
+
+def bldg_recipe(dataset: str = "GOOGLE_EARTH") -> Config:
+    """Building (BLDG) generator: no encoder, sin/cos, per-instance z,
+    PTv3 on."""
+    ds = (google_earth_dataset() if dataset == "GOOGLE_EARTH"
+          else kitti_360_dataset())
+    ds = ds.replace(
+        train_n_instances=1,
+        train_instance_range=(10, 16384),
+        test_n_instances=1,
+        test_instance_range=(10, 16384),
+        train_crop_size=(640, 448),
+    )
+    net = GaussianNetworkConfig(
+        scale_factor=0.65,
+        encoder=None,
+        encoder_out_dim=3,
+        pos_emd="SIN_COS",
+        z_dim=256,
+        ptv3=PTv3Config(enabled=True, pool_capacity_divisor=2),
+    )
+    return Config(exp_name="BLDG", dataset=ds, network=net,
+                  rasterizer=RasterizerConfig(grad_budget=65536))

@@ -152,9 +152,10 @@ class InferencePipeline:
     ``models`` maps a class name ("REST", "BLDG", "CAR") to a generator
     module with its weights.  ``class_budgets`` (name -> point budget)
     selects the compact per-class path.  ``stage_ms`` collects per-stage
-    wall times (device synchronised at each stage boundary) and
-    ``frame_stats`` the visible count and rasterizer counters of every
-    frame rendered."""
+    wall times (device synchronised at each stage boundary; on the compact
+    path ``generator`` is split per model into ``generator_<name>``) and
+    ``frame_stats`` the visible count (per model ``n_<name>`` on the
+    compact path) and rasterizer counters of every frame rendered."""
 
     def __init__(self, cfg: Config, models: Dict[str, torch.nn.Module],
                  max_points: int = 262144,
@@ -414,13 +415,17 @@ class InferencePipeline:
                      for name, rows in parts]
         n = int(sum(len(rows) for _, rows in parts))
         t = self._record("points", t)
-        gs = torch.cat([
-            self.predict_attrs(p, proj_hf, proj_seg, None, style_lut)
-            if name is None else
-            self.predict_attrs_single(name, p, proj_hf, proj_seg, None,
-                                      style_lut)
-            for name, p in dev_parts])
-        t = self._record("generator", t)
+        t_gen, gs = t, []
+        for name, p in dev_parts:
+            if name is None:
+                gs.append(self.predict_attrs(p, proj_hf, proj_seg, None,
+                                             style_lut))
+                continue
+            gs.append(self.predict_attrs_single(name, p, proj_hf, proj_seg,
+                                                None, style_lut))
+            t = self._record(f"generator_{name}", t)
+        gs = torch.cat(gs)
+        t = self._record("generator", t_gen)
         f32 = dict(dtype=torch.float32, device=self.device)
         img = self.raster_view(gs, torch.as_tensor(cam_pos, **f32),
                                torch.as_tensor(cam_quat, **f32))
@@ -430,6 +435,7 @@ class InferencePipeline:
         out = self.last_render
         self.frame_stats.append({
             "n_visible": n,
+            **{f"n_{name}": len(rows) for name, rows in parts if name},
             "n_dropped_pairs": int(out.n_dropped_pairs),
             "n_truncated": int(out.n_truncated),
             "n_grad_truncated": int(out.n_grad_truncated)})

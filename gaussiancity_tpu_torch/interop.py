@@ -6,12 +6,16 @@ the port's ``state_dict``, and the port's own generator checkpoints.
 arrays.  Dense kernels ``[in, out]`` become ``[out, in]``, conv kernels
 HWIO become OIHW, and the ``ModLinear`` and hash-table arrays are copied
 as they are (the port keeps the JAX package's ``[L, R_max, C]`` table).
+The PTv3 subtree (``pt_net``) keeps its names: its ``SubMConv`` kernels
+``[K^3, C, F]`` are copied as they are, ``LayerNorm_0`` scale and bias
+become the ``nn.LayerNorm`` weight and bias, and the ``MaskedBatchNorm``
+running ``mean`` / ``var`` come from the ``batch_stats`` collection.
 """
 
 from __future__ import annotations
 
 import json
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,13 +46,41 @@ _MODLINEAR = ("weight", "weight_alpha", "bias_alpha", "weight_beta",
               "bias_beta", "bias")
 
 
-def generator_state_from_flax(params_np: Mapping,
+def ptv3_state_from_flax(tree: Mapping, prefix: str = "",
+                         out: Optional[Dict[str, torch.Tensor]] = None
+                         ) -> Dict[str, torch.Tensor]:
+    """Flatten a Flax PTv3 subtree (params or batch_stats) into the port's
+    names under ``prefix``; a ``MaskedBatchNorm`` without statistics gets
+    the defaults (mean 0, var 1)."""
+    out = {} if out is None else out
+    for name, value in tree.items():
+        key = f"{prefix}.{name}" if prefix else name
+        if isinstance(value, Mapping):
+            if name == "LayerNorm_0":
+                out[f"{prefix}.weight"] = _t(value["scale"])
+                out[f"{prefix}.bias"] = _t(value["bias"])
+            else:
+                ptv3_state_from_flax(value, key, out)
+        elif name == "kernel" and np.ndim(value) == 2:
+            out[key[:-len("kernel")] + "weight"] = _t(np.asarray(value).T)
+        else:
+            out[key] = _t(value)
+            if name == "scale":  # a MaskedBatchNorm
+                stem = key[:-len("scale")]
+                out.setdefault(stem + "mean", torch.zeros(len(value)))
+                out.setdefault(stem + "var", torch.ones(len(value)))
+    return out
+
+
+def generator_state_from_flax(variables_np: Mapping,
                               cfg: GaussianNetworkConfig
                               ) -> Dict[str, torch.Tensor]:
-    """Flax ``Generator`` params (the ``"params"`` collection) -> the
-    port's ``Generator.state_dict()``."""
-    if "params" in params_np:
-        params_np = params_np["params"]
+    """Flax ``Generator`` variables -> the port's
+    ``Generator.state_dict()``.  Takes the full variable dict
+    ``{"params", "batch_stats"}`` or the bare params (then a PTv3 keeps
+    its default running statistics, mean 0 and var 1)."""
+    params_np = variables_np.get("params", variables_np)
+    batch_stats = variables_np.get("batch_stats", {})
     out: Dict[str, torch.Tensor] = {}
     if cfg.encoder == "GLOBAL":
         enc = params_np["proj_encoder"]
@@ -72,6 +104,9 @@ def generator_state_from_flax(params_np: Mapping,
             for k in _MODLINEAR:
                 if k in p:
                     out[f"ga_mlp.{name}.{k}"] = _t(p[k])
+    if cfg.ptv3.enabled:
+        ptv3_state_from_flax(params_np["pt_net"], "pt_net", out)
+        ptv3_state_from_flax(batch_stats.get("pt_net", {}), "pt_net", out)
     return out
 
 

@@ -2,10 +2,11 @@
 """Gaussian-attribute generator (counterpart of
 ``gaussiancity_tpu/models/generator.py``; upstream models/generator.py).
 
-Scene encoder -> positional encoding (hash grid or sin/cos) -> per-point
-attribute MLP.  This slice covers the REST generator: the GLOBAL encoder,
-the hash grid, no PTv3.  ``encoder="LOCAL"``, ``ptv3.enabled`` and the
-bfloat16 compute dtype raise ``NotImplementedError``.
+Scene encoder -> positional encoding (hash grid or sin/cos) -> optional
+PTv3 features -> per-point attribute MLP.  The REST generator (GLOBAL
+encoder, hash grid) and the BLDG generator (sin/cos, style z, PTv3; eval
+only) are ported.  ``encoder="LOCAL"`` and the bfloat16 compute dtype
+raise ``NotImplementedError``.
 
 Public layouts follow the JAX package: projection maps are NHWC and
 points [B, N, C]; convolutions permute to NCHW inside.  Submodule and
@@ -24,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from gaussiancity_tpu_torch.config import GaussianNetworkConfig
+from gaussiancity_tpu_torch.models import ptv3
 from gaussiancity_tpu_torch.ops.hash_grid import GridEncoder
 
 
@@ -242,8 +244,9 @@ class Generator(nn.Module):
         else:
             raise ValueError(f"Unknown positional encoder: {cfg.pos_emd}")
         if cfg.ptv3.enabled:
-            raise NotImplementedError(
-                "PTv3 is not ported yet (the BLDG slice)")
+            self.pt_net = ptv3.PointTransformerV3(cfg.ptv3,
+                                                  in_channels=feat_dim)
+            feat_dim += self.pt_net.out_channels
         self.ga_mlp = GaussianAttrMLP(
             n_classes=n_classes, in_dim=feat_dim, z_dim=cfg.z_dim,
             hidden_dim=cfg.mlp_hidden_dim,
@@ -255,8 +258,11 @@ class Generator(nn.Module):
         for m in self.modules():
             if isinstance(m, (nn.Linear, nn.Conv2d)):
                 _reset_torch_default(m, generator)
-            elif isinstance(m, (GridEncoder, ModLinear)):
+            elif isinstance(m, (GridEncoder, ModLinear, ptv3.SubMConv,
+                                ptv3.MaskedBatchNorm)):
                 m.reset_parameters(generator)
+            elif isinstance(m, nn.LayerNorm):
+                m.reset_parameters()
 
     def forward(self, proj_uv, rel_xyz, batch_idx, onehots, z,
                 proj_hf=None, proj_seg=None, point_mask=None):
@@ -267,4 +273,8 @@ class Generator(nn.Module):
         else:
             pt_feat = rel_xyz.new_zeros((B, N, 0))
         pt_feat = torch.cat([pt_feat, rel_xyz], dim=-1)
-        return self.ga_mlp(self.pos_encoder(pt_feat), onehots, z)
+        pt_feat = self.pos_encoder(pt_feat)
+        if self.cfg.ptv3.enabled:
+            pt_feat = torch.cat(
+                [pt_feat, self.pt_net(pt_feat, rel_xyz, point_mask)], dim=-1)
+        return self.ga_mlp(pt_feat, onehots, z)

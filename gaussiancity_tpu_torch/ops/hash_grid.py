@@ -14,18 +14,24 @@ convert one to one.  Semantics:
   ``& 0xFFFFFFFF`` after each multiply);
 - align_corners=False: pos = x * scale + 0.5;
 - the gradient follows the JAX package's custom VJP (``_HashEncode``).
+
+The forward is kernel G1 (``csrc/hash_encode_fwd.cu``) on CUDA tensors
+and ``hash_encode_fwd_plain`` (one [2^D, N, C] gather per level) on CPU
+tensors.  The forward keeps no corner values: the backward recomputes the
+geometry and, when the inputs need a gradient, gathers the corners again.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 from torch.autograd.function import once_differentiable
 
+from gaussiancity_tpu_torch import _kernels
 from gaussiancity_tpu_torch.ops import hash_grid_bwd
 
 _PRIMES = (1, 2654435761, 805459861, 3674653429, 2097192037, 1434869437,
@@ -55,6 +61,14 @@ def level_params(in_channels: int, n_levels: int, base_resolution: int,
         hashed.append(corners > params_in_level)
         offset += params_in_level
     return per_level_scale, offsets, resolutions, hashed, offset
+
+
+def level_scales(n_levels: int, base_resolution: int,
+                 desired_resolution: int) -> Sequence[float]:
+    """Per-level scale ``2^(l * log2(s)) * base - 1`` (Python floats)."""
+    S = math.log2(desired_resolution / base_resolution) / (n_levels - 1)
+    return [(2.0 ** (lvl * S)) * base_resolution - 1.0
+            for lvl in range(n_levels)]
 
 
 def _level_rows(offsets, total):
@@ -112,13 +126,15 @@ def _level_geometry(inputs: torch.Tensor, D: int, n_levels: int,
     _, offsets, resolutions, hashed, total = level_params(
         D, n_levels, base_resolution, desired_resolution, log2_hashmap_size)
     level_rows = _level_rows(offsets, total)
-    S = math.log2(desired_resolution / base_resolution) / (n_levels - 1)
-    x01 = (inputs + bound) / (2.0 * bound)
+    scales = level_scales(n_levels, base_resolution, desired_resolution)
+    # a tensor divisor: CUDA divides by a Python scalar as a product with
+    # its reciprocal, which kernel G1 does not
+    x01 = (inputs + bound) / torch.tensor(2.0 * bound, dtype=inputs.dtype,
+                                          device=inputs.device)
     oob = ((x01 < 0.0) | (x01 > 1.0)).any(dim=-1)
     bits = corner_bits(D, inputs.device)
-    idx, fracs, ws, scales = [], [], [], []
-    for lvl in range(n_levels):
-        scale = (2.0 ** (lvl * S)) * base_resolution - 1.0
+    idx, fracs, ws = [], [], []
+    for lvl, scale in enumerate(scales):
         pos = x01 * scale + 0.5  # [N, D]
         g = torch.floor(pos)
         frac = pos - g
@@ -131,56 +147,145 @@ def _level_geometry(inputs: torch.Tensor, D: int, n_levels: int,
                                   level_rows[lvl]).to(torch.int32))
         fracs.append(frac.T)
         ws.append(w)
-        scales.append(scale)
     return (torch.stack(idx), torch.stack(fracs), torch.stack(ws), oob,
             scales)
+
+
+def hash_encode_fwd_plain(inputs: torch.Tensor, embeddings: torch.Tensor,
+                          n_levels: int, base_resolution: int,
+                          desired_resolution: int, log2_hashmap_size: int,
+                          bound: float = 1.0) -> torch.Tensor:
+    """Plain version of G1: one [2^D, N, C] gather per level (each level
+    reads only its own [R_max, C] block), weighted and summed over the
+    corners.  inputs [N, D], embeddings [L, R_max, C] -> [N, L * C]."""
+    idx, _, w, oob, _ = _level_geometry(
+        inputs, inputs.shape[1], n_levels, base_resolution,
+        desired_resolution, log2_hashmap_size, bound)
+    out = torch.cat([(embeddings[lvl][idx[lvl].long()]
+                      * w[lvl, ..., None]).sum(dim=0)
+                     for lvl in range(n_levels)], dim=-1)
+    return torch.where(oob[:, None], torch.zeros_like(out), out)
+
+
+_level_tables: Dict[tuple, torch.Tensor] = {}
+
+
+def level_table(in_channels: int, n_levels: int, base_resolution: int,
+                desired_resolution: int, log2_hashmap_size: int,
+                device) -> torch.Tensor:
+    """G1's per-level parameters [L, 4] int32 on ``device``: the level
+    scale (computed in double, rounded to float32 as the plain version's
+    Python float is, and kept as its bits), the resolution, the hashed
+    flag and the level's row count."""
+    key = (in_channels, n_levels, base_resolution, desired_resolution,
+           log2_hashmap_size, str(device))
+    table = _level_tables.get(key)
+    if table is None:
+        _, offsets, resolutions, hashed, total = level_params(
+            in_channels, n_levels, base_resolution, desired_resolution,
+            log2_hashmap_size)
+        scales = np.array(level_scales(n_levels, base_resolution,
+                                       desired_resolution), np.float32)
+        rows = np.stack([scales.view(np.int32),
+                         np.asarray(resolutions, np.int32),
+                         np.asarray(hashed, np.int32),
+                         np.asarray(_level_rows(offsets, total), np.int32)],
+                        axis=1)
+        table = torch.as_tensor(rows, device=device)
+        _level_tables[key] = table
+    return table
+
+
+def hash_encode_fwd(inputs: torch.Tensor, embeddings: torch.Tensor,
+                    n_levels: int, base_resolution: int,
+                    desired_resolution: int, log2_hashmap_size: int,
+                    bound: float = 1.0) -> torch.Tensor:
+    """The hash-grid forward, inputs [N, D] float32 and embeddings
+    [L, R_max, C] float32 -> [N, L * C].  CUDA tensors go to kernel G1,
+    CPU tensors to the plain version."""
+    if inputs.device != embeddings.device:
+        raise ValueError(f"inputs are on {inputs.device}, embeddings on "
+                         f"{embeddings.device}")
+    if inputs.dtype != torch.float32 or embeddings.dtype != torch.float32:
+        raise TypeError("inputs and embeddings must be float32, got "
+                        f"{inputs.dtype} and {embeddings.dtype}")
+    if inputs.dim() != 2 or embeddings.dim() != 3 \
+            or embeddings.shape[0] != n_levels:
+        raise ValueError(f"inputs must be [N, D] and embeddings "
+                         f"[{n_levels}, R_max, C], got {tuple(inputs.shape)}"
+                         f" and {tuple(embeddings.shape)}")
+    args = (n_levels, base_resolution, desired_resolution,
+            log2_hashmap_size, bound)
+    if not inputs.is_cuda:
+        return hash_encode_fwd_plain(inputs, embeddings, *args)
+    N, D = inputs.shape
+    _, R_max, C = embeddings.shape
+    if not 1 <= D <= 7 or not 1 <= C <= 16:
+        raise ValueError("kernel G1 takes 1..7 inputs and 1..16 channels")
+    if not inputs.is_contiguous() or not embeddings.is_contiguous():
+        raise ValueError("inputs and embeddings must be contiguous")
+    if C == 8 and embeddings.data_ptr() % 16:
+        raise ValueError("kernel G1 loads 8-channel rows as float4: the "
+                         "table must be 16-byte aligned")
+    if N >= 2 ** 31 or R_max >= 2 ** 31:
+        raise ValueError("kernel G1 counts points and rows in int32")
+    levels = level_table(D, n_levels, base_resolution, desired_resolution,
+                         log2_hashmap_size, inputs.device)
+    out = torch.empty((N, n_levels * C), dtype=torch.float32,
+                      device=inputs.device)
+    if N:
+        _kernels.launch("hash_encode_fwd", inputs.data_ptr(),
+                        embeddings.data_ptr(), levels.data_ptr(), N, D,
+                        n_levels, R_max, C, float(bound),
+                        float(np.float32(2.0 * bound)), out.data_ptr(),
+                        _kernels.stream_handle(inputs.device))
+        hash_encode_fwd.launches += 1
+    return out
+
+
+hash_encode_fwd.launches = 0
 
 
 class _HashEncode(torch.autograd.Function):
     """The JAX package's ``hash_encode`` custom VJP: the embedding
     gradient is a sorted segment sum (kernel K3 on the card,
     ``hash_grid_bwd.hash_grad_embeddings``), the input gradient the
-    closed-form multilinear chain (``hash_grid.py:275-298``)."""
+    closed-form multilinear chain (``hash_grid.py:275-298``).  The forward
+    (G1) keeps only its inputs; the backward recomputes the corner rows
+    and weights, and gathers the corner values (one gather per level)
+    when the inputs need a gradient."""
 
     @staticmethod
     def forward(ctx, inputs, embeddings, geometry_args, bound):
-        D = inputs.shape[1]
-        idx, frac, w, oob, scales = _level_geometry(
-            inputs.detach(), D, *geometry_args, bound)
-        # one [2^D, N, C] gather per level: each level reads only its own
-        # [R_max, C] block.  The corner values are kept for the input
-        # gradient only when the inputs need one.
-        vals = [embeddings[lvl][idx[lvl].long()]
-                for lvl in range(idx.shape[0])]
-        out = torch.cat([(v * w[lvl, ..., None]).sum(dim=0)
-                         for lvl, v in enumerate(vals)], dim=-1)
-        out = torch.where(oob[:, None], torch.zeros_like(out), out)
-        keep = vals if ctx.needs_input_grad[0] else []
-        ctx.save_for_backward(idx, frac, w, oob, *keep)
-        ctx.scales, ctx.bound = scales, bound
-        ctx.n_rows = embeddings.shape[1]
+        out = hash_encode_fwd(inputs.detach().contiguous(),
+                              embeddings.detach(), *geometry_args, bound)
+        ctx.save_for_backward(inputs, embeddings)
+        ctx.geometry_args, ctx.bound = geometry_args, bound
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        idx, frac, w, oob, *vals = ctx.saved_tensors
+        inputs, embeddings = ctx.saved_tensors
+        D = inputs.shape[1]
+        idx, frac, w, oob, scales = _level_geometry(
+            inputs, D, *ctx.geometry_args, ctx.bound)
         L, NC, N = w.shape
-        D = frac.shape[1]
         C = g.shape[1] // L
         gm = torch.where(oob[:, None], torch.zeros_like(g), g)
         g_l = gm.reshape(N, L, C).transpose(0, 1).contiguous()  # [L, N, C]
         d_emb = d_inputs = None
         if ctx.needs_input_grad[1]:
-            d_emb = hash_grid_bwd.hash_grad_embeddings(idx, w, g_l,
-                                                       ctx.n_rows)
+            d_emb = hash_grid_bwd.hash_grad_embeddings(
+                idx, w, g_l, embeddings.shape[1])
         if ctx.needs_input_grad[0]:
-            # dw[l, c, n] = <value of corner c, g_l[l, n]>
-            dw = torch.stack([(v * g_l[lvl][None]).sum(dim=-1)
-                              for lvl, v in enumerate(vals)])  # [L, 2^D, N]
+            # dw[l, c, n] = <value of corner c, g_l[l, n]>, one level's
+            # [2^D, N, C] corner values at a time
+            dw = torch.stack([
+                (embeddings[lvl][idx[lvl].long()] * g_l[lvl][None]).sum(-1)
+                for lvl in range(L)])  # [L, 2^D, N]
             bits = corner_bits(D, g.device)
-            scales = torch.tensor(ctx.scales, dtype=frac.dtype,
-                                  device=g.device)
+            scales = torch.tensor(scales, dtype=frac.dtype, device=g.device)
             d_x01 = []
             for d in range(D):
                 prod = torch.ones_like(dw)

@@ -8,15 +8,17 @@ has only the port's dependencies:
 
 The plain versions themselves are held to the JAX package by
 test_torch_rasterizer.py (K1, K2 and the per-Gaussian use of K3),
-test_torch_models.py (the hash-grid use of K3) and
-test_torch_visibility.py (V1)."""
+test_torch_models.py (the hash-grid use of K3 and G1's plain version)
+and test_torch_visibility.py (V1).  K4 is the JAX package's gather probe
+and has no JAX counterpart on the CPU."""
 
 import numpy as np
 import pytest
 import torch
 
 from gaussiancity_tpu_torch.camera import CameraModel
-from gaussiancity_tpu_torch.ops import hash_grid_bwd
+from gaussiancity_tpu_torch.ops import gather_rowsum as gr
+from gaussiancity_tpu_torch.ops import hash_grid, hash_grid_bwd
 from gaussiancity_tpu_torch.ops import visibility as vis
 from gaussiancity_tpu_torch.ops.rasterizer import binning, blend, preprocess
 
@@ -33,6 +35,11 @@ K2_RTOL = 1e-4
 # K3 sums each run in sorted order, index_add_ in its own: relative to the
 # largest output magnitude
 K3_RTOL = 1e-5
+# G1's per-corner terms equal the plain version's, only the order of the
+# corner sum differs; K4 widens bf16 exactly and sums 8 channels in
+# another order: relative to the largest output
+G1_RTOL = 1e-6
+K4_RTOL = 1e-6
 
 
 @pytest.fixture
@@ -252,3 +259,64 @@ def test_raycast_kernel_matches_plain(dev, case):
     assert hit.float().mean() > 0.3
     torch.testing.assert_close(got[1][hit], want[1][hit], rtol=1e-5, atol=0)
     assert torch.isinf(got[1][~hit]).all()
+
+
+G1_CASES = {
+    # D, L, base res, desired res, log2 rows, C, N: dense and hashed
+    # levels, N not a multiple of the 256-thread block
+    "xyz_dense_and_hashed_c2": (3, 4, 4, 64, 8, 2, 3001),
+    "rest_5d_c8": (5, 16, 16, 512, 19, 8, 20000),
+    "rest_5d_c8_small_table": (5, 3, 16, 64, 10, 8, 777),
+}
+
+
+@pytest.mark.parametrize("case", sorted(G1_CASES))
+def test_hash_encode_kernel_matches_plain(dev, case):
+    D, L, base, desired, log2, C, N = G1_CASES[case]
+    _, _, _, hashed, _ = hash_grid.level_params(D, L, base, desired, log2)
+    if case.startswith("xyz"):
+        assert not hashed[0] and hashed[-1]
+    shape = hash_grid.table_shape(D, L, base, desired, log2, C)
+    rng = np.random.default_rng(6)
+    emb = torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32))
+    # a few points outside [-1, 1] give zeros
+    x = torch.from_numpy(rng.uniform(-1.05, 1.05, (N, D)).astype(np.float32))
+    args = (x.to(dev), emb.to(dev), L, base, desired, log2)
+    n0 = hash_grid.hash_encode_fwd.launches
+    got = hash_grid.hash_encode_fwd(*args)
+    again = hash_grid.hash_encode_fwd(*args)
+    assert hash_grid.hash_encode_fwd.launches == n0 + 2
+    want = hash_grid.hash_encode_fwd_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    scale = float(want.abs().max())
+    assert scale > 0.1
+    assert float((got - want).abs().max()) <= G1_RTOL * scale
+    oob = (x.abs() > 1).any(-1).to(dev)
+    assert oob.any() and (got[oob] == 0).all()
+    # the CPU plain version gives the same
+    torch.testing.assert_close(got.cpu(), hash_grid.hash_encode_fwd_plain(
+        x, emb, L, base, desired, log2), rtol=0, atol=G1_RTOL * scale)
+
+
+def test_hash_encode_kernel_rejects_mixed_devices(dev):
+    with pytest.raises(ValueError):
+        hash_grid.hash_encode_fwd(torch.zeros((4, 3), device=dev),
+                                  torch.zeros((2, 64, 2)), 2, 4, 16, 6)
+
+
+def test_gather_rowsum_kernel_matches_plain(dev):
+    table, idx = gr.probe_inputs(seed=3, device=dev)
+    idx[0, :5] = torch.tensor([-3, 0, gr.PROBE_ROWS - 1, gr.PROBE_ROWS,
+                               2 ** 30], device=dev)  # clamped
+    n0 = gr.gather_rowsum.launches
+    got = gr.gather_rowsum(table, idx)
+    again = gr.gather_rowsum(table, idx)
+    assert gr.gather_rowsum.launches == n0 + 2
+    want = gr.gather_rowsum_plain(table, idx)
+    torch.cuda.synchronize()
+    assert got.shape == idx.shape and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    scale = float(want.abs().max())
+    assert scale > 1
+    assert float((got - want).abs().max()) <= K4_RTOL * scale

@@ -17,9 +17,12 @@ from gaussiancity_tpu.ops import hash_grid as jhash
 
 from gaussiancity_tpu_torch import interop
 from gaussiancity_tpu_torch.config import Config, GaussianNetworkConfig
-from gaussiancity_tpu_torch.config import PTv3Config, rest_recipe
+from gaussiancity_tpu_torch.config import (PTv3Config, bldg_recipe,
+                                           rest_recipe)
 from gaussiancity_tpu_torch.models.generator import Generator
-from gaussiancity_tpu_torch.ops import hash_grid
+from gaussiancity_tpu_torch.ops import gather_rowsum, hash_grid
+
+from test_torch_ptv3 import TINY as TINY_PTV3
 
 # float32 sums of up to 2^D corner products and matmuls taken in another
 # order than XLA's
@@ -119,7 +122,32 @@ class TestHashGrid:
                                       want.astype(np.int64) % rows)
 
 
+class TestGatherRowsum:
+    def test_plain_matches_the_probe_kernel_body(self):
+        """K4's CPU path against the body of the JAX package's probe
+        kernel (scripts/bench_gather3.py:64-69, defined inside the
+        script's main and not importable): the channel sums in float32
+        of the bf16 rows gathered at the indices."""
+        rng = np.random.default_rng(7)
+        table = rng.normal(size=(4096, 8)).astype(np.float32)
+        idx = rng.integers(0, 4096, (8, 512)).astype(np.int32)
+        jtab = jnp.asarray(table, jnp.bfloat16)
+        want = jnp.sum(jtab[jnp.asarray(idx).reshape(-1)].astype(
+            jnp.float32), axis=-1).reshape(idx.shape)
+        got = gather_rowsum.gather_rowsum(
+            torch.from_numpy(table).to(torch.bfloat16),
+            torch.from_numpy(idx))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-6, atol=1e-6)
+        assert gather_rowsum.gather_rowsum.launches == 0  # CPU: plain
+
+
 def _net_kwargs(variant):
+    if variant == "bldg":
+        # the BLDG recipe's shape: no encoder, sin/cos, style z, PTv3
+        return dict(scale_factor=0.65, encoder=None, encoder_out_dim=3,
+                    pos_emd="SIN_COS", sin_cos_freq_bends=2, z_dim=16,
+                    mlp_hidden_dim=32)
     if variant == "rest":
         return dict(scale_factor=0.5, encoder="GLOBAL", encoder_out_dim=5,
                     global_encoder_n_blocks=3, pos_emd="HASH_GRID",
@@ -138,8 +166,13 @@ def _net_kwargs(variant):
 
 def _generator_pair(variant, P=32, N=300, seed=0):
     kw = _net_kwargs(variant)
-    jnet = JNetConfig(**kw, ptv3=JPTv3Config(enabled=False))
-    tnet = GaussianNetworkConfig(**kw, ptv3=PTv3Config(enabled=False))
+    on = variant == "bldg"
+    if on:
+        N = 288  # the JAX PTv3 takes whole patches of 32
+    ptv3_kw = TINY_PTV3 if on else {}
+    jnet = JNetConfig(**kw, ptv3=JPTv3Config(enabled=on, **ptv3_kw))
+    tnet = GaussianNetworkConfig(**kw, ptv3=PTv3Config(enabled=on,
+                                                       **ptv3_kw))
     rng = np.random.default_rng(seed)
     z_dim = kw["z_dim"]
     inputs = dict(
@@ -160,16 +193,24 @@ def _generator_pair(variant, P=32, N=300, seed=0):
                 jnp.asarray(inputs["hf"]), jnp.asarray(inputs["seg"]),
                 jnp.ones((1, N), bool))
 
-    params = jax.tree_util.tree_map(
-        np.asarray, jgen.init(jax.random.PRNGKey(seed), *jargs())["params"])
+    variables = jax.tree_util.tree_map(
+        np.asarray, dict(jax.jit(jgen.init)(jax.random.PRNGKey(seed),
+                                            *jargs())))
+    params = variables["params"]
+    if "batch_stats" in variables:
+        # random running statistics, so that the eval BatchNorm matters
+        variables["batch_stats"] = jax.tree_util.tree_map(
+            lambda a: rng.uniform(0.5, 2.0, a.shape).astype(np.float32),
+            variables["batch_stats"])
     if "pos_encoder" in params:
         # the init table is +-1e-4: widen it so that the lookup matters
         params["pos_encoder"]["embeddings"] = rng.uniform(
             -1, 1, params["pos_encoder"]["embeddings"].shape
         ).astype(np.float32)
-    want = jgen.apply({"params": params}, *jargs())
+    want = jax.jit(jgen.apply)(variables, *jargs())
     gen = Generator(tnet, n_classes=8, proj_size=P)
-    gen.load_state_dict(interop.generator_state_from_flax(params, tnet))
+    gen.load_state_dict(interop.generator_state_from_flax(variables, tnet))
+    gen.eval()
     targs = [None if inputs[k] is None else torch.from_numpy(inputs[k])
              for k in ("uv", "rel")] + [None] + [
         None if inputs[k] is None else torch.from_numpy(inputs[k])
@@ -178,7 +219,7 @@ def _generator_pair(variant, P=32, N=300, seed=0):
 
 
 class TestGenerator:
-    @pytest.mark.parametrize("variant", ["rest", "styled_all_attrs"])
+    @pytest.mark.parametrize("variant", ["rest", "styled_all_attrs", "bldg"])
     def test_matches_jax(self, variant):
         gen, targs, want = _generator_pair(variant)
         with torch.no_grad():
@@ -223,14 +264,28 @@ class TestGenerator:
         assert all(torch.equal(x, y) for x, y in zip(b, gen.parameters()))
         assert not all(torch.equal(x, y) for x, y in zip(a, b))
 
-    @pytest.mark.parametrize("change", ["local", "ptv3"])
+    def test_bldg_recipe_builds_at_full_width(self):
+        cfg = bldg_recipe()
+        assert cfg.network.ptv3.enabled and cfg.network.z_dim == 256
+        gen = Generator(cfg.network, n_classes=cfg.dataset.n_classes,
+                        proj_size=cfg.dataset.proj_size)
+        net = gen.pt_net.net
+        assert net.enc4_block1.attn.qkv.in_features == 512
+        assert net.enc0_block0.attn.patch_size == 1024
+        assert gen.ga_mlp.fc_1.in_features == 3 * 2 * 10 + 64
+        a = [p.clone() for p in gen.parameters()]
+        gen.reset_parameters(torch.Generator().manual_seed(1))
+        b = [p.clone() for p in gen.parameters()]
+        assert all(not torch.equal(x, y) for x, y in zip(a, b)
+                   if x.numel() > 1 and x.std() > 0)
+
+    @pytest.mark.parametrize("change", ["local", "bfloat16"])
     def test_later_slices_raise(self, change):
         kw = _net_kwargs("rest")
         if change == "local":
             kw["encoder"] = "LOCAL"
-            net = GaussianNetworkConfig(**kw,
-                                        ptv3=PTv3Config(enabled=False))
         else:
-            net = GaussianNetworkConfig(**kw, ptv3=PTv3Config(enabled=True))
+            kw["compute_dtype"] = "bfloat16"
+        net = GaussianNetworkConfig(**kw, ptv3=PTv3Config(enabled=False))
         with pytest.raises(NotImplementedError):
             Generator(net, n_classes=8, proj_size=32)

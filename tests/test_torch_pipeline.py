@@ -130,6 +130,93 @@ def test_render_trajectory_matches_jax(rest_pair, budgets, monkeypatch):
                                    "generator", "rasterize", "blur"}
 
 
+@pytest.fixture(scope="module")
+def bldg_pair():
+    """A tiny BLDG generator (sin/cos, style z, the small PTv3) in both
+    packages with the same weights and random running statistics."""
+    from gaussiancity_tpu.config import GaussianNetworkConfig as JNet
+    from gaussiancity_tpu.config import PTv3Config as JPTv3
+    from test_torch_models import _net_kwargs
+    from test_torch_ptv3 import TINY as TINY_PTV3
+
+    from gaussiancity_tpu_torch.config import GaussianNetworkConfig, PTv3Config
+
+    kw = _net_kwargs("bldg")
+    jnet = JNet(**kw, ptv3=JPTv3(enabled=True, **TINY_PTV3))
+    P, N, Z = 64, 1024, kw["z_dim"]
+    gen = JGenerator(cfg=jnet, n_classes=8, proj_size=P)
+    variables = jax.tree_util.tree_map(np.asarray, dict(jax.jit(gen.init)(
+        jax.random.PRNGKey(1), jnp.zeros((1, N, 2)), jnp.zeros((1, N, 3)),
+        None, jnp.zeros((1, N, 8)), jnp.zeros((1, N, Z)),
+        jnp.zeros((1, P, P, 1)), jnp.zeros((1, P, P, 8)),
+        jnp.ones((1, N), bool))))
+    rng = np.random.default_rng(1)
+    variables["batch_stats"] = jax.tree_util.tree_map(
+        lambda a: rng.uniform(0.5, 2.0, a.shape).astype(np.float32),
+        variables["batch_stats"])
+    tnet = GaussianNetworkConfig(**kw, ptv3=PTv3Config(enabled=True,
+                                                       **TINY_PTV3))
+    tgen = Generator(tnet, n_classes=8, proj_size=P)
+    tgen.load_state_dict(interop.generator_state_from_flax(variables, tnet))
+    return gen, variables, tgen, Z
+
+
+def test_two_model_compact_trajectory_matches_jax(rest_pair, bldg_pair,
+                                                  monkeypatch):
+    """REST + BLDG on the compact path, the style table passed as the JAX
+    benchmark passes it (the default table has the REST model's width)."""
+    cfg, tcfg, gen, params, tgen = rest_pair
+    bgen, bvars, tbgen, Z = bldg_pair
+    P = cfg.dataset.proj_size
+    budgets = {"REST": 2048, "BLDG": 2048}
+    projections = synthetic_projections(P)
+    centers = {i: (32.0, 32.0, 64.0, 64.0, 20.0) for i in range(200)}
+    lut = pipeline.get_style_lut(centers, Z, seed=0)
+    poses = jpipeline.get_orbit_camera_poses(P, n_points=6, radius=30,
+                                             altitude=30)[1:3]
+    tposes = pipeline.get_orbit_camera_poses(P, n_points=6, radius=30,
+                                             altitude=30)[1:3]
+    jpipe = _JaxPipelineExactIds(
+        cfg, {"REST": (gen, params), "BLDG": (bgen, bvars)},
+        max_points=4096, vol_shape=(72, 72, 24), class_budgets=budgets)
+    jfloat = []
+    to_u8 = jpipe.frame_to_uint8
+    jpipe.frame_to_uint8 = lambda img: (jfloat.append(np.asarray(img)),
+                                        to_u8(img))[1]
+    jframes = jpipe.render_trajectory(projections, centers, poses,
+                                      style_lut=lut)
+
+    tpipe = pipeline.InferencePipeline(
+        tcfg, {"REST": tgen, "BLDG": tbgen}, max_points=4096,
+        vol_shape=(72, 72, 24), class_budgets=budgets, device="cpu")
+    tfloat = []
+    u8 = pipeline.frame_to_uint8
+    monkeypatch.setattr(pipeline, "frame_to_uint8", lambda img: (
+        tfloat.append(img.numpy().copy()), u8(img))[1])
+    tframes = tpipe.render_trajectory(projections, centers, tposes,
+                                      style_lut=lut)
+    assert len(tframes) == len(jframes) == 2
+    for i in range(2):
+        np.testing.assert_allclose(tfloat[i], jfloat[i], atol=1e-4)
+        a, b = jframes[i].astype(int), tframes[i].astype(int)
+        diff = np.abs(a - b)
+        assert (diff == 0).mean() >= 0.999 and diff.max() <= 1
+        assert a.std() > 1
+    for name in ("REST", "BLDG"):
+        assert len(tpipe.stage_ms[f"generator_{name}"]) == 2
+    # the BLDG generator saw points, and its features reach the frame
+    assert all(st["n_visible"] > 0 for st in tpipe.frame_stats)
+    with torch.no_grad():
+        tbgen.pt_net.net.embedding_norm.bias.add_(1.0)
+    again = tpipe.render_trajectory(projections, centers, tposes[:1],
+                                    style_lut=lut)
+    assert (again[0] != tframes[0]).any()
+    # the default style table has the REST model's z width (1): the BLDG
+    # model cannot take it, in the port as in the JAX package
+    with pytest.raises(RuntimeError):
+        tpipe.render_trajectory(projections, centers, tposes[:1])
+
+
 def test_host_helpers_match_jax():
     rng = np.random.default_rng(0)
     pos, at = rng.normal(size=3) * 50, rng.normal(size=3) * 5
