@@ -10,8 +10,10 @@ Phases, each of which fails the run if it fails:
 3. hold the blend forward (K1) against its plain PyTorch version at the
    frame's shape (960x540 at 32x32 tiles: 510 tiles, 2048 slots, the
    16x16 reference gate on), on a seeded scene;
-4. hold the first-hit raycast (V1) against its plain version on the
-   synthetic city's 512x512x192 id volume at 960x540;
+4. hold the first-hit raycast (V1), with the occupancy tables that
+   ``build_volume`` caches, against its plain version on the synthetic
+   city's 512x512x192 id volume at 960x540: voxel ids and depths
+   bit-equal on every ray;
 5. render a small trajectory on the card and on the CPU (plain versions)
    and compare the frames;
 6. render a REST inference trajectory at the REST recipe's full widths
@@ -21,15 +23,16 @@ Phases, each of which fails the run if it fails:
 7. hold the blend backward (K2) and the sorted segment sum (K3, both of
    its uses: the hash-grid embedding gradient and the per-Gaussian
    gradient reduction) against their plain versions on the inputs one
-   full-width REST train step gives them, and run K3 twice (bit-equal);
+   full-width REST train step gives them, run K3 twice (bit-equal), and
+   fail if K3 is slower than ``index_add_`` in either use;
 8. take two train steps of a tiny config on the card and on the CPU
    (plain versions) from the same seeded weights and compare losses and
    gradients;
 9. train the REST generator at the REST recipe's full widths through
    ``Trainer.train_step`` (2 warm-up steps, then 5 timed steps with the
    launch counts set to 0 just before them): finite losses, changed
-   weights, ``RasterGradTruncated`` 0, and K1, K2, K3 and G1 on every
-   step;
+   weights, ``RasterGradTruncated`` 0, and K1, K2, K3 (both uses) and G1
+   on every step;
 10. render a small REST + BLDG (PTv3) trajectory on the compact path on
     the card and on the CPU and compare the frames;
 11. render the two-model frame at full widths (REST recipe seed 0, BLDG
@@ -51,7 +54,8 @@ and the run says so.
 
 It prints timings beside the card's name and power limit, a ``kernels``
 JSON line (launches on the timed passes, time, plain time, library time,
-bound, max error), and as its last line ``{"ok": true, "device": {...}}``.
+bound, max error; K3 also per use), and as its last line
+``{"ok": true, "device": {...}}``.
 
 Run from the repository root: ``python3 chip_smoke.py``
 (``--profile`` adds torch.profiler passes over the frame and the train
@@ -79,6 +83,11 @@ BLEND_FLOP_PER_EVAL = 26
 # operations per DDA step: axis choice (2), cell step and exit test (3),
 # next crossing (3), in-volume test (6), voxel address (4), hit test (1)
 RAYCAST_OPS_PER_STEP = 19
+# operations per jump over an empty region (csrc/raycast.cu jump_empty):
+# the region's bounds (20), three axes' exit crossings (24), the exit axis
+# (6), two searches of up to five probes of ~9 operations (90), the new
+# cells and crossings (20)
+RAYCAST_OPS_PER_JUMP = 160
 # fp32 operations per (pixel, slot) pair that the blend backward tests:
 # offsets (2), power (9), exp (1), alpha and clamp (2), the eligibility
 # tests (3) and the nine reduction adds (9); counted slots do ~45 more,
@@ -106,7 +115,7 @@ K4_RTOL = 1e-6
 # the JAX package's two-model frame (bench.py:373-417)
 FRAME_BUDGETS = {"REST": 196608, "BLDG": 65536}
 TRAIN_POINTS = 16384  # the REST recipe's train_max_points
-MATCH_SHARE = 0.999  # n_contrib and voxel ids: share of pixels equal
+MATCH_SHARE = 0.999  # K1 n_contrib: share of pixels equal
 N_BLEND_GAUSSIANS = 400_000  # Gaussians of K1's seeded test scene
 
 
@@ -305,7 +314,22 @@ def phase_raycast(pipe, projections, poses) -> dict:
 
     points = pipe.build_points(projections)
     pipe.build_volume(points)
-    vol = pipe._vol
+    vol, occ = pipe._vol, pipe._occ
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rebuilt = vis.pack_occupancy(vol)
+    torch.cuda.synchronize()
+    pack_ms = (time.perf_counter() - t0) * 1e3
+    check(all(torch.equal(getattr(occ, k).view(torch.int32),
+                          getattr(rebuilt, k).view(torch.int32))
+              for k in ("occ_words", "coarse_cols", "coarse2_cols"))
+          and occ.ztop == rebuilt.ztop,
+          "the cached occupancy tables differ from a rebuild")
+    del rebuilt
+    log(f"V1 occupancy tables: occ_words {tuple(occ.occ_words.shape)}, "
+        f"coarse {tuple(occ.coarse_cols.shape)}, coarse2 "
+        f"{tuple(occ.coarse2_cols.shape)}; pack_occupancy {pack_ms:.2f} ms "
+        "(host clock, device synchronised; once per volume)")
     W, H = pipe.ds.sensor_size
     K = np.asarray(pipe.ds.cam_k).reshape(3, 3)
     pose = poses[1]
@@ -315,12 +339,13 @@ def phase_raycast(pipe, projections, poses) -> dict:
         torch.tensor([pose[k] for k in ("tx", "ty", "tz")], **f32),
         torch.tensor([pose[k] for k in ("qx", "qy", "qz", "qw")], **f32),
         pipe._offsets)
-    args = (vol, rays, float(K[0, 0]), (float(K[1, 2]), float(K[0, 2])),
-            (H, W), pipe._ztop)
+    view = (vol, rays, float(K[0, 0]), (float(K[1, 2]), float(K[0, 2])),
+            (H, W))
+    args, tables = view + (occ.ztop,), view + (occ,)
     log(f"V1 inputs: volume {tuple(vol.shape)} "
         f"({int((vol != 0).sum())} occupied) rays {H}x{W} "
-        f"ztop={pipe._ztop}")
-    got = vis.raycast(*args)
+        f"ztop={occ.ztop}")
+    got = vis.raycast(*tables)
     want = vis.raycast_plain(*args)
     torch.cuda.synchronize()
     share = float((got[0] == want[0]).float().mean())
@@ -329,27 +354,49 @@ def phase_raycast(pipe, projections, poses) -> dict:
     hits = float((want[0] != 0).float().mean())
     log(f"V1 vs plain: voxel ids equal {share:.6f}, depth max|d| on equal "
         f"hits {err:.3e}, hit share {hits:.4f}")
-    check(share >= MATCH_SHARE, "V1 voxel ids differ from the plain version")
+    check(torch.equal(got[0], want[0]),
+          "V1 voxel ids differ from the plain version")
+    check(torch.equal(got[1], want[1]),
+          "V1 depths are not bit-equal to the plain version")
     check(hits > 0.5, "V1 test view sees too little of the city")
-    ms = cuda_time_ms(lambda: vis.raycast(*args))
+    ms = cuda_time_ms(lambda: vis.raycast(*tables))
     plain_ms = cuda_time_ms(lambda: vis.raycast_plain(*args), iters=2,
                             warmup=1)
     n_steps, n_cells = int(want[2].sum()), int(want[3])
     n_bytes = n_cells * 4 + 12 * 4 + H * W * 8
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_steps * RAYCAST_OPS_PER_STEP / FP32_FLOP_PER_S * 1e3
-    log(f"V1: {ms:.4f} ms, plain {plain_ms:.2f} ms; bound: {n_bytes} B "
-        f"({n_cells} cells read) -> {t_bytes:.5f} ms, {n_steps} DDA steps "
-        f"-> {t_ops:.5f} ms")
+    log(f"V1: {ms:.4f} ms, plain {plain_ms:.2f} ms; the walk's bound: "
+        f"{n_bytes} B ({n_cells} cells read) -> {t_bytes:.5f} ms, {n_steps} "
+        f"DDA steps -> {t_ops:.5f} ms")
+    # the work the function needs: the cells this design still steps
+    # through and the empty regions it jumps over, counted by the kernel's
+    # counting variant on this view
+    again = vis.raycast_work(*tables)
+    torch.cuda.synchronize()
+    check(torch.equal(again[0], want[0]) and torch.equal(again[1], want[1]),
+          "V1 with its work count differs from the plain version")
+    work = again[2]
+    n_design, n_jumps = int(work[..., 0].sum()), int(work[..., 1].sum())
+    check(0 < n_design <= n_steps, "V1 stepped more cells than the walk")
+    t_design = ((n_design * RAYCAST_OPS_PER_STEP
+                 + n_jumps * RAYCAST_OPS_PER_JUMP) / FP32_FLOP_PER_S * 1e3)
+    log(f"V1 design work: {n_design} steps ({n_design / n_steps:.4f} of the "
+        f"walk's) and {n_jumps} jumps over empty regions -> "
+        f"{t_design:.5f} ms; the kernels line's bound is "
+        f"{max(t_bytes, t_design):.5f} ms (the walk's under walk_bound_ms)")
     return {"name": "raycast", "route": "cuda",
             "source": "gaussiancity_tpu_torch/csrc/raycast.cu",
             "replaces": "gaussiancity_tpu/ops/visibility.py:154 "
                         "(ray_voxel_intersection, an XLA while_loop; no "
                         "Pallas kernel)",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None}
+            "bound_ms": max(t_bytes, t_design),
+            "bound_by": "bytes" if t_bytes >= t_design else "operations",
+            "library_ms": None, "walk_steps": n_steps,
+            "design_steps": n_design, "design_jumps": n_jumps,
+            "walk_bound_ms": max(t_bytes, t_ops),
+            "pack_occupancy_ms": pack_ms}
 
 
 def small_config():
@@ -644,8 +691,9 @@ def phase_grad_kernels(captured):
         uses[use] = (keys, rows, n_rows)
     check(sorted(uses) == ["hash_grid", "per_gaussian"],
           "the train step must call K3 for both of its uses")
-    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                  err=0.0, t_bytes=0.0, t_ops=0.0)
+    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, err=0.0,
+                  t_bytes=0.0, t_ops=0.0)
+    per_use = {}
     for use, (keys, rows, n_rows) in sorted(uses.items()):
         L, M, C = rows.shape
         got = hash_grid_bwd.segment_sum_sorted(keys, rows, n_rows)
@@ -654,14 +702,17 @@ def phase_grad_kernels(captured):
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         scale = float(want.abs().max())
+        # the runs of equal kept keys, which set the kernel's work
+        kept = keys[(keys >= 0) & (keys < n_rows)]
+        run_len = torch.unique_consecutive(kept, return_counts=True)[1]
         log(f"K3 {use}: L={L} M={M} C={C} R={n_rows}; vs plain max|d| "
             f"{err:.3e} (scale {scale:.3e}); repeat bit-equal "
-            f"{torch.equal(got, again)}")
+            f"{torch.equal(got, again)}; {run_len.numel()} runs of kept "
+            f"keys, median {int(run_len.median())}, longest "
+            f"{int(run_len.max())} rows")
         check(torch.equal(got, again), f"K3 ({use}) differs between runs")
         check(err <= K3_RTOL * scale and scale > 0,
               f"K3 ({use}) differs from index_add_ by more than {K3_RTOL}")
-        ms = cuda_time_ms(
-            lambda: hash_grid_bwd.segment_sum_sorted(keys, rows, n_rows))
         plain_ms = cuda_time_ms(
             lambda: hash_grid_bwd.segment_sum_sorted_plain(keys, rows,
                                                            n_rows),
@@ -672,21 +723,44 @@ def phase_grad_kernels(captured):
         keep = (k >= 0) & (k < n_rows)
         flat = (k + torch.arange(L, device=k.device)[:, None] * n_rows)[keep]
         flat_rows = rows[keep]
-        library_ms = cuda_time_ms(lambda: torch.zeros(
-            (L * n_rows, C), device=rows.device).index_add_(0, flat,
-                                                            flat_rows))
+
+        def kernel():
+            hash_grid_bwd.segment_sum_sorted(keys, rows, n_rows)
+
+        def library():
+            torch.zeros((L * n_rows, C), device=rows.device).index_add_(
+                0, flat, flat_rows)
+
+        # in turns (kernel, library, library, kernel), the better of each
+        # pair: the two are compared, so they share the card's state
+        runs = {"kernel": [], "library": []}
+        for name in ("kernel", "library", "library", "kernel"):
+            runs[name].append(cuda_time_ms(
+                kernel if name == "kernel" else library, iters=50))
+        ms, library_ms = min(runs["kernel"]), min(runs["library"])
         n_keys = int(keep.sum())
         n_bytes = n_keys * (4 + C * 4) + L * n_rows * C * 4
         t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
         t_ops = n_keys * C / FP32_FLOP_PER_S * 1e3
-        log(f"K3 {use}: {ms:.4f} ms, plain {plain_ms:.3f} ms, index_add_ "
-            f"{library_ms:.4f} ms; bound: {n_bytes} B -> {t_bytes:.5f} ms, "
+        log(f"K3 {use}: {ms:.5f} ms (runs {runs['kernel']}), plain "
+            f"{plain_ms:.3f} ms, index_add_ {library_ms:.5f} ms (runs "
+            f"{runs['library']}); bound: {n_bytes} B -> {t_bytes:.5f} ms, "
             f"{n_keys * C} adds -> {t_ops:.6f} ms")
+        check(ms <= library_ms,
+              f"K3 ({use}) is slower than index_add_: {ms:.5f} ms against "
+              f"{library_ms:.5f} ms")
         for name, v in (("ms", ms), ("plain_ms", plain_ms),
                         ("library_ms", library_ms), ("t_bytes", t_bytes),
                         ("t_ops", t_ops)):
             totals[name] += v
         totals["err"] = max(totals["err"], err)
+        per_use[use] = {
+            "L": L, "M": M, "C": C, "R": n_rows, "kept_keys": n_keys,
+            "runs": run_len.numel(), "longest_run": int(run_len.max()),
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "max_abs_err": err}
     k3 = {"name": "segment_sum", "route": "cuda",
           "source": "gaussiancity_tpu_torch/csrc/segment_sum.cu",
           "replaces": "gaussiancity_tpu/ops/hash_grid_bwd.py:57",
@@ -695,8 +769,9 @@ def phase_grad_kernels(captured):
           "bound_ms": max(totals["t_bytes"], totals["t_ops"]),
           "bound_by": ("bytes" if totals["t_bytes"] >= totals["t_ops"]
                        else "operations"),
-          "library_ms": totals["library_ms"]}
-    log("K3 line: both uses of one step summed (ms, plain, library, bound)")
+          "library_ms": totals["library_ms"], "uses": per_use}
+    log("K3 line: both uses of one step summed (ms, plain, library, bound),"
+        " and each use under \"uses\"")
     return [k2, k3]
 
 
@@ -1003,9 +1078,28 @@ def phase_train(trainer, batch, n_warm: int = 2, n_timed: int = 5):
     trainer.stage_ms.clear()
     trainer.time_stages = True
     torch.cuda.reset_peak_memory_stats()
+    # K3's launches by use: the wrapper's own count read around each of
+    # its two callers
+    k3 = hash_grid_bwd.segment_sum_sorted
+    k3_callers = {"hash_grid": "hash_grad_embeddings",
+                  "per_gaussian": "reduce_rows"}
+    k3_calls = dict.fromkeys(k3_callers, 0)
+    callers = {use: getattr(hash_grid_bwd, name)
+               for use, name in k3_callers.items()}
+
+    def observed(use):
+        def call(*args):
+            before = k3.launches
+            out = callers[use](*args)
+            k3_calls[use] += k3.launches - before
+            return out
+        return call
+
+    for use, name in k3_callers.items():
+        setattr(hash_grid_bwd, name, observed(use))
     blend.blend_forward.launches = 0
     blend.blend_backward.launches = 0
-    hash_grid_bwd.segment_sum_sorted.launches = 0
+    k3.launches = 0
     hash_grid.hash_encode_fwd.launches = 0
     step_ms = []
     for i in range(n_timed):
@@ -1029,15 +1123,22 @@ def phase_train(trainer, batch, n_warm: int = 2, n_timed: int = 5):
             f"{n} {float((after[n] - before[n]).abs().max()):.3e}"
             for n in before))
     trainer.time_stages = False
+    for use, name in k3_callers.items():
+        setattr(hash_grid_bwd, name, callers[use])
     launches = {"blend_fwd": blend.blend_forward.launches,
                 "blend_bwd": blend.blend_backward.launches,
-                "segment_sum": hash_grid_bwd.segment_sum_sorted.launches,
+                "segment_sum": k3.launches,
                 "hash_encode_fwd": hash_grid.hash_encode_fwd.launches}
-    log(f"launches on the {n_timed} timed steps: {launches}")
+    log(f"launches on the {n_timed} timed steps: {launches}; K3 calls by "
+        f"use {k3_calls}")
     check(launches["blend_fwd"] >= n_timed and launches["blend_bwd"]
           >= n_timed and launches["segment_sum"] >= 2 * n_timed
           and launches["hash_encode_fwd"] >= n_timed,
           "K1, K2, K3 and G1 must be launched on every train step")
+    check(sum(k3_calls.values()) == launches["segment_sum"]
+          and min(k3_calls.values()) >= n_timed,
+          "K3 must be launched for both of its uses on every train step")
+    launches["segment_sum_by_use"] = k3_calls
     med = float(np.median(step_ms))
     log(f"train step: median {med:.2f} ms of {n_timed} (stage timers "
         f"synchronise the device at each boundary); peak device memory "
@@ -1152,6 +1253,8 @@ def main() -> int:
     for k in kernels:
         if "launches" not in k:
             k["launches"] = sum(t.get(k["name"], 0) for t in timed)
+        for use, entry in k.get("uses", {}).items():
+            entry["launches"] = timed[-1]["segment_sum_by_use"][use]
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -46,9 +46,10 @@ _ARGTYPES = {
                   P, P],
     # keys, rows, L, M, C, R, out, stream
     "segment_sum": [P, P, I, I, I, I, P, P],
-    # volume, h, w, d, rays (origin, up, side, fwd), H, W, cy, cx, f,
-    # ztop, voxel_id, depth, stream
-    "raycast": [P, I, I, I, P, I, I, F, F, F, F, P, P, P],
+    # volume, occ_words, coarse_cols, coarse2_cols, h, w, d, rays (origin,
+    # up, side, fwd), H, W, cy, cx, f, ztop, voxel_id, depth, tile_counter,
+    # work (or null), stream
+    "raycast": [P, P, P, P, I, I, I, P, I, I, F, F, F, F, P, P, P, P, P],
     # inputs, table, level params, N, D, L, R_max, C, bound, 2 * bound,
     # out, stream
     "hash_encode_fwd": [P, P, P, I, I, I, I, I, F, F, P, P],

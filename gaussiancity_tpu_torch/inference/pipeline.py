@@ -225,9 +225,10 @@ class InferencePipeline:
         return np.array([mins[0], mins[1], mins[2] - 1], np.int32)
 
     def build_volume(self, points: np.ndarray) -> None:
-        """Build (or keep) the id volume of ``points``.  It depends only
-        on the points, so trajectories build it once; a sampled-row
-        fingerprint notices a changed point set."""
+        """Build (or keep) the id volume of ``points`` and its occupancy
+        tables (``vis.pack_occupancy``, which the raycast reads).  They
+        depend only on the points, so trajectories build them once; a
+        sampled-row fingerprint notices a changed point set."""
         stride = max(1, len(points) // 97)
         fp = (points.shape, points.dtype.str, points[::stride].tobytes(),
               int(points[:, :3].sum()))
@@ -244,7 +245,7 @@ class InferencePipeline:
                            device=self.device)
         self._vol = vis.points_to_volume(pts[:, :3] - offsets, ids, scales3,
                                          h, w, d)
-        self._ztop = vis.occupancy_top(self._vol)
+        self._occ = vis.pack_occupancy(self._vol)
         self._pts_dev = pts
         self._offsets = offsets
         self._pts_fp = fp
@@ -262,7 +263,7 @@ class InferencePipeline:
             self._vol, self._pts_dev, torch.as_tensor(cam_pos, **f32),
             torch.as_tensor(cam_quat, **f32), cam_f=float(K[0, 0]),
             cam_c=(float(K[1, 2]), float(K[0, 2])), img_dims=(H, W),
-            offsets=self._offsets, ztop=self._ztop)
+            offsets=self._offsets, occupancy=self._occ)
         vp_idx = torch.unique(vp_map[vp_map >= 0]).cpu().numpy()
         return points[vp_idx], ins_map == 1  # ROAD class id
 

@@ -3,10 +3,11 @@
 raycast (counterpart of ``gaussiancity_tpu/ops/visibility.py``; upstream
 voxlib points_to_volume.cu and ray_voxel_intersection.cu).
 
-``raycast`` launches kernel V1 (``csrc/raycast.cu``, one thread per ray)
-on CUDA tensors and runs ``raycast_plain`` (lockstep over the live rays)
-on CPU tensors.  Both follow the plain cell-by-cell DDA of the JAX
-package's ``ray_voxel_intersection``:
+``raycast`` launches kernel V1 (``csrc/raycast.cu``, one thread per ray,
+testing cells against the bit-packed ``pack_occupancy`` tables) on CUDA
+tensors and runs ``raycast_plain`` (lockstep over the live rays, testing
+the id volume) on CPU tensors.  Both follow the plain cell-by-cell DDA of
+the JAX package's ``ray_voxel_intersection``:
 
 - ray basis by Gram-Schmidt from the view direction and world up, with
   ``ndc = (cy - py, px - cx)`` and dir = up*ndc0 + side*ndc1 + fwd*f;
@@ -17,14 +18,19 @@ package's ``ray_voxel_intersection``:
 - the origin cell is never tested; each later cell is tested on entry
   and its entry parameter is the hit depth.
 
-The JAX march's bit-packed occupancy, 1/4/16 column hierarchy, banding
-and survivor compaction are TPU devices and are not carried over.
-Volumes are indexed [y, x, z] and ray origins given in that order.
+``pack_occupancy`` builds the JAX package's tables (per-column z-words
+and their OR over 4x4 and 16x16 column blocks), once per volume; V1 tests
+each entered cell against them, jumps over empty regions of them to the
+state the cell-by-cell walk would reach, and reads the id volume only at
+the hit.  The JAX march's banding, column stepping and survivor
+compaction are not carried over: V1's hits and depths are those of
+``raycast_plain`` bit for bit.  Volumes are indexed [y, x, z] and ray
+origins given in that order.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -74,11 +80,58 @@ def points_to_volume(points: torch.Tensor, pt_ids: torch.Tensor,
     return vol
 
 
-def occupancy_top(volume: torch.Tensor) -> float:
-    """1 + the highest occupied z layer (0 for an empty volume)."""
-    occ_z = (volume != 0).any(dim=0).any(dim=0)
-    nz = torch.nonzero(occ_z)
-    return float(nz.max()) + 1.0 if nz.numel() else 0.0
+# xy edge of a coarse column block: the tables cover 1, 4 and 16 columns
+COARSE = 4
+
+
+class Occupancy(NamedTuple):
+    """Bit-packed occupancy of an id volume [h, w, d] (the JAX package's
+    ``pack_occupancy``): ``occ_words`` [h, w, ceil(d/32)] uint32 holds bit
+    z % 32 of word z // 32 per column; ``coarse_cols`` [ceil(h/4),
+    ceil(w/4), ceil(d/32)] is the OR of each 4x4 block of columns and
+    ``coarse2_cols`` the OR of each 4x4 block of those, both at full z
+    resolution; ``ztop`` is 1 + the highest occupied z (0 if empty)."""
+    occ_words: torch.Tensor
+    ztop: float
+    coarse_cols: torch.Tensor
+    coarse2_cols: torch.Tensor
+
+
+def _block_or(words: torch.Tensor) -> torch.Tensor:
+    """[h, w, dw] int32 -> [ceil(h/C), ceil(w/C), dw]: the OR of each
+    C x C block (C = COARSE), zero-padded at the ragged edge."""
+    h, w, dw = words.shape
+    hb, wb = -(-h // COARSE), -(-w // COARSE)
+    padded = words.new_zeros((hb * COARSE, wb * COARSE, dw))
+    padded[:h, :w] = words
+    blocks = padded.reshape(hb, COARSE, wb, COARSE, dw)
+    out = blocks[:, 0, :, 0].clone()
+    for i in range(COARSE):
+        for j in range(COARSE):
+            if i or j:
+                out |= blocks[:, i, :, j]
+    return out
+
+
+def pack_occupancy(volume: torch.Tensor) -> Occupancy:
+    """The occupancy tables of ``volume`` [h, w, d] (0 = empty), built with
+    torch ops on the volume's device.  Built once per volume: the
+    inference pipeline caches them next to the id volume."""
+    h, w, d = volume.shape
+    occ = volume != 0
+    dw = -(-d // 32)
+    if dw * 32 > d:
+        occ = torch.cat([occ, occ.new_zeros((h, w, dw * 32 - d))], dim=2)
+    bits = occ.reshape(h, w, dw, 32)
+    words = torch.zeros((h, w, dw), dtype=torch.int32, device=volume.device)
+    for b in range(32):
+        words |= bits[..., b].to(torch.int32) << b
+    coarse = _block_or(words)
+    coarse2 = _block_or(coarse)
+    nz = torch.nonzero(occ.any(dim=0).any(dim=0))
+    ztop = float(nz.max()) + 1.0 if nz.numel() else 0.0
+    return Occupancy(words.view(torch.uint32), ztop,
+                     coarse.view(torch.uint32), coarse2.view(torch.uint32))
 
 
 def _norm3(v):
@@ -181,14 +234,23 @@ def raycast_plain(volume: torch.Tensor, rays: torch.Tensor, cam_f: float,
             n_steps.reshape(H, W), read.sum())
 
 
-def raycast(volume: torch.Tensor, rays: torch.Tensor, cam_f: float,
-            cam_c: Tuple[float, float], img_dims: Tuple[int, int],
-            ztop: float):
-    """First-hit raycast of an H x W image through ``volume`` [h, w, d]
-    int32 (0 = empty) with ``rays`` from ``ray_basis``.  Returns
-    (voxel_id [H, W] int32, depth [H, W] float32).
+def _check_occupancy(volume: torch.Tensor, occupancy: Occupancy) -> None:
+    h, w, d = volume.shape
+    dw = -(-d // 32)
+    hb, wb = -(-h // COARSE), -(-w // COARSE)
+    want = {"occ_words": (h, w, dw), "coarse_cols": (hb, wb, dw),
+            "coarse2_cols": (-(-hb // COARSE), -(-wb // COARSE), dw)}
+    for name, shape in want.items():
+        t = getattr(occupancy, name)
+        if t.dtype != torch.uint32 or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be a uint32 {shape} tensor, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != volume.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on the volume's "
+                             "device")
 
-    CUDA tensors go to kernel V1; CPU tensors to the plain version."""
+
+def _check_raycast(volume: torch.Tensor, rays: torch.Tensor) -> None:
     if volume.dtype != torch.int32 or volume.dim() != 3:
         raise TypeError("volume must be an int32 [h, w, d] tensor")
     if rays.dtype != torch.float32 or tuple(rays.shape) != (12,):
@@ -199,22 +261,70 @@ def raycast(volume: torch.Tensor, rays: torch.Tensor, cam_f: float,
         raise ValueError("volume and rays must be contiguous")
     if volume.numel() >= 2 ** 31:
         raise ValueError("volume too large for 32-bit voxel ids")
-    if not volume.is_cuda:
-        return raycast_plain(volume, rays, cam_f, cam_c, img_dims, ztop)[:2]
+
+
+def _launch_raycast(volume, rays, cam_f, cam_c, img_dims, occupancy,
+                    work=None):
+    """Kernel V1 on CUDA tensors; ``work`` (int32 [H, W, 2] or None)
+    selects the variant that counts steps and jumps."""
     H, W = img_dims
     h, w, d = volume.shape
     dev = volume.device
     voxel_id = torch.empty((H, W), dtype=torch.int32, device=dev)
     depth = torch.empty((H, W), dtype=torch.float32, device=dev)
+    tile_counter = torch.zeros((1,), dtype=torch.int32, device=dev)
     _kernels.launch(
-        "raycast", volume.data_ptr(), h, w, d, rays.data_ptr(), H, W,
-        float(cam_c[0]), float(cam_c[1]), float(cam_f), float(ztop),
-        voxel_id.data_ptr(), depth.data_ptr(), _kernels.stream_handle(dev))
+        "raycast", volume.data_ptr(), occupancy.occ_words.data_ptr(),
+        occupancy.coarse_cols.data_ptr(), occupancy.coarse2_cols.data_ptr(),
+        h, w, d, rays.data_ptr(), H, W, float(cam_c[0]), float(cam_c[1]),
+        float(cam_f), float(occupancy.ztop), voxel_id.data_ptr(),
+        depth.data_ptr(), tile_counter.data_ptr(),
+        0 if work is None else work.data_ptr(), _kernels.stream_handle(dev))
     raycast.launches += 1
     return voxel_id, depth
 
 
+def raycast(volume: torch.Tensor, rays: torch.Tensor, cam_f: float,
+            cam_c: Tuple[float, float], img_dims: Tuple[int, int],
+            occupancy: Optional[Occupancy] = None):
+    """First-hit raycast of an H x W image through ``volume`` [h, w, d]
+    int32 (0 = empty) with ``rays`` from ``ray_basis``.  Returns
+    (voxel_id [H, W] int32, depth [H, W] float32).
+
+    ``occupancy`` is ``pack_occupancy(volume)``: pass it where the volume
+    outlives the call, or it is built here (as in the JAX package); its
+    ``ztop`` sets the sky skip.  CUDA tensors go to kernel V1, which tests
+    cells against its tables; CPU tensors to the plain version."""
+    _check_raycast(volume, rays)
+    if occupancy is None:
+        occupancy = pack_occupancy(volume)
+    _check_occupancy(volume, occupancy)
+    if not volume.is_cuda:
+        return raycast_plain(volume, rays, cam_f, cam_c, img_dims,
+                             occupancy.ztop)[:2]
+    return _launch_raycast(volume, rays, cam_f, cam_c, img_dims, occupancy)
+
+
 raycast.launches = 0
+
+
+def raycast_work(volume: torch.Tensor, rays: torch.Tensor, cam_f: float,
+                 cam_c: Tuple[float, float], img_dims: Tuple[int, int],
+                 occupancy: Occupancy):
+    """``raycast`` and the work it did: (voxel_id, depth, work [H, W, 2]
+    int32), work holding per ray the cells stepped and the empty regions
+    jumped.  A measurement of V1's design (the plain version steps every
+    cell and jumps none); frames call ``raycast``."""
+    _check_raycast(volume, rays)
+    _check_occupancy(volume, occupancy)
+    H, W = img_dims
+    work = torch.zeros((H, W, 2), dtype=torch.int32, device=volume.device)
+    if not volume.is_cuda:
+        voxel_id, depth, work[..., 0], _ = raycast_plain(
+            volume, rays, cam_f, cam_c, img_dims, occupancy.ztop)
+        return voxel_id, depth, work
+    return _launch_raycast(volume, rays, cam_f, cam_c, img_dims, occupancy,
+                           work) + (work,)
 
 
 class RaycastResult(NamedTuple):
@@ -225,14 +335,17 @@ class RaycastResult(NamedTuple):
 def ray_voxel_intersection(volume: torch.Tensor, cam_ori: torch.Tensor,
                            cam_dir: torch.Tensor, cam_up: torch.Tensor,
                            cam_f: float, cam_c: Tuple[float, float],
-                           img_dims: Tuple[int, int]) -> RaycastResult:
+                           img_dims: Tuple[int, int],
+                           occupancy: Optional[Occupancy] = None
+                           ) -> RaycastResult:
     """First-hit raycast with the camera given in volume coordinates
-    (y, x, z); the JAX package's function of the same name."""
+    (y, x, z); the JAX package's function of the same name, which also
+    takes a prebuilt ``pack_occupancy(volume)``."""
     rays = ray_basis(torch.as_tensor(cam_ori, device=volume.device),
                      torch.as_tensor(cam_dir, device=volume.device),
                      torch.as_tensor(cam_up, device=volume.device))
     return RaycastResult(*raycast(volume, rays, cam_f, cam_c, img_dims,
-                                  occupancy_top(volume)))
+                                  occupancy))
 
 
 def world_ray_basis(cam_pos: torch.Tensor, cam_quat: torch.Tensor,
@@ -253,11 +366,12 @@ def visible_from_volume(vol: torch.Tensor, points: torch.Tensor,
                         cam_pos: torch.Tensor, cam_quat: torch.Tensor,
                         cam_f: float, cam_c: Tuple[float, float],
                         img_dims: Tuple[int, int], offsets: torch.Tensor,
-                        ztop: float):
-    """Raycast a prebuilt id volume (1-based point ids) from a world pose.
+                        occupancy: Optional[Occupancy] = None):
+    """Raycast a prebuilt id volume (1-based point ids) from a world pose,
+    with its ``pack_occupancy`` tables where the caller keeps them.
     Returns (vp_map [H, W] point index or -1, ins_map [H, W])."""
     voxel_id, _ = raycast(vol, world_ray_basis(cam_pos, cam_quat, offsets),
-                          cam_f, cam_c, img_dims, ztop)
+                          cam_f, cam_c, img_dims, occupancy)
     vp_map = voxel_id.long() - 1
     ins = points[:, 4]
     ins_map = torch.where(vp_map >= 0, ins[vp_map.clamp(min=0)],

@@ -8,8 +8,9 @@ has only the port's dependencies:
 
 The plain versions themselves are held to the JAX package by
 test_torch_rasterizer.py (K1, K2 and the per-Gaussian use of K3),
-test_torch_models.py (the hash-grid use of K3 and G1's plain version)
-and test_torch_visibility.py (V1).  K4 is the JAX package's gather probe
+test_torch_models.py (the hash-grid use of K3 and G1's plain version),
+test_torch_segment_sum.py (K3's module) and test_torch_visibility.py (V1
+and its occupancy tables).  K4 is the JAX package's gather probe
 and has no JAX counterpart on the CPU."""
 
 import numpy as np
@@ -202,6 +203,74 @@ def test_segment_sum_kernel_matches_index_add(dev):
     assert ((got - want).abs() <= K3_RTOL * want.abs().max()).all()
 
 
+def _k3_keys(rng, layout, L, M, R):
+    """Sorted int32 keys [L, M] of one layout."""
+    if layout == "short_runs":  # runs of a few rows, many across chunk edges
+        keys = rng.integers(0, R, (L, M))
+    elif layout == "one_long_run":  # one key over 20,000 rows: many chunks
+        keys = rng.integers(0, R, (L, M))
+        keys[:, M // 2 - 10000:M // 2 + 10000] = R // 3
+    elif layout == "all_outside":  # every key < 0 or >= R
+        keys = np.where(rng.random((L, M)) < 0.5,
+                        rng.integers(-50, 0, (L, M)),
+                        rng.integers(R, R + 50, (L, M)))
+    elif layout == "with_outside":  # negative keys and keys >= R as well
+        keys = rng.integers(-R // 4, R + R // 4, (L, M))
+    elif layout == "per_gaussian":  # kept slots, then the key R of drops
+        keys = rng.integers(0, R, (L, M))
+        keys[:, M // 4:] = R
+    else:
+        raise ValueError(layout)
+    return np.sort(keys, axis=1).astype(np.int32)
+
+
+K3_CASES = {
+    # L, M, C, R, key layout.  The kernel's chunk is 128, 256 or 512
+    # sorted rows, the largest that still gives the card's SMs 8 blocks
+    # each: the first cases run 128-row chunks, "l16_c8_chunk512" and
+    # "long_run_chunk256" the larger ones (on a 132-SM card).
+    "cross_edges_c8": (1, 5000, 8, 1200, "short_runs"),
+    "m_ragged_c16": (3, 1077, 16, 900, "short_runs"),
+    "one_long_run_c9": (1, 20000, 9, 3000, "one_long_run"),
+    "all_outside_c8": (2, 3000, 8, 500, "all_outside"),
+    "with_outside_c1_l16": (16, 4099, 1, 2000, "with_outside"),
+    "r_far_above_m_c9": (1, 3000, 9, 200000, "short_runs"),
+    "r_far_below_m_c8": (2, 60000, 8, 40, "short_runs"),
+    "per_gaussian_tail_c9": (1, 65536, 9, 16384, "per_gaussian"),
+    "l16_c8_chunk512": (16, 40000, 8, 30000, "short_runs"),
+    "long_run_chunk256_c9": (1, 300000, 9, 50000, "one_long_run"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K3_CASES))
+def test_segment_sum_kernel_cases(dev, case):
+    L, M, C, R, layout = K3_CASES[case]
+    rng = np.random.default_rng(len(case))
+    keys = _k3_keys(rng, layout, L, M, R)
+    rows = rng.normal(size=(L, M, C)).astype(np.float32)
+    tk, tr = torch.from_numpy(keys).to(dev), torch.from_numpy(rows).to(dev)
+    n0 = hash_grid_bwd.segment_sum_sorted.launches
+    got = hash_grid_bwd.segment_sum_sorted(tk, tr, R)
+    again = hash_grid_bwd.segment_sum_sorted(tk, tr, R)
+    assert hash_grid_bwd.segment_sum_sorted.launches == n0 + 2
+    want = hash_grid_bwd.segment_sum_sorted_plain(tk, tr, R)
+    torch.cuda.synchronize()
+    assert got.shape == (L, R, C)
+    assert torch.equal(got, again)  # no atomics: bit-equal repeat
+    named = np.zeros((L, R), bool)
+    for lvl in range(L):
+        k = keys[lvl]
+        named[lvl, k[(k >= 0) & (k < R)]] = True
+    named = torch.from_numpy(named).to(dev)
+    assert (got[~named] == 0).all()
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= K3_RTOL * scale
+    if layout == "all_outside":
+        assert scale == 0 and not named.any()
+    else:
+        assert scale > 0
+
+
 def test_segment_sum_callers_match_cpu(dev):
     rng = np.random.default_rng(5)
     keys = torch.from_numpy(rng.integers(0, 700, 20000))
@@ -230,35 +299,98 @@ def _city_volume():
     return vol
 
 
+def _ragged_volume():
+    """h, w and d not multiples of 16 or 32: a ground layer, scattered
+    columns and a solid 16x16-aligned block with a hollow inside."""
+    rng = np.random.default_rng(22)
+    vol = np.zeros((53, 71, 45), np.int32)
+    occ = rng.random((53, 71, 14)) > 0.92
+    vol[:, :, :14][occ] = rng.integers(1, 5000, occ.sum())
+    vol[:, :, 0] = 7
+    vol[16:32, 16:32, 10:20] = np.arange(1, 16 * 16 * 10 + 1).reshape(
+        16, 16, 10)
+    vol[22:27, 22:27, 12:18] = 0
+    return vol
+
+
+def _wide_volume():
+    """A city floor of 1040 x 1040 columns (0.83 GB of ids): its 16x16
+    table (65 x 65 blocks x 6 z-words, 101,400 B) is over the kernel's
+    96 KB of shared memory, so V1 reads it from global memory."""
+    rng = np.random.default_rng(23)
+    vol = np.zeros((1040, 1040, 192), np.int32)
+    occ = rng.random((1040, 1040, 10)) > 0.995
+    vol[:, :, 1:11][occ] = rng.integers(1, 2 ** 30, occ.sum())
+    vol[:, :, 0] = 11
+    vol[500:700, 300:340, :60] = 12  # a block standing out of the floor
+    return vol
+
+
+RAY_SCENES = {"city": _city_volume, "ragged": _ragged_volume,
+              "wide": _wide_volume}
+
 RAY_CASES = {
-    # origin (y, x, z), view direction, f, (cy, cx), (H, W)
+    # origin (y, x, z), view direction, f, (cy, cx), (H, W), volume
     "inside_slab": ([20.3, 7.7, 6.1], [0.3, 1.0, -0.1], 30.0, (24.0, 40.0),
-                    (48, 80)),
+                    (48, 80), "city"),
     "sky_skip": ([32.2, 3.7, 40.4], [0.2, 1.0, -0.6], 40.0, (30.0, 50.0),
-                 (60, 100)),
+                 (60, 100), "city"),
     "near_axis": ([32.0, 3.0, 30.0], [-1.7e-16, 0.72, -0.695], 40.0,
-                  (30.0, 50.0), (60, 100)),
+                  (30.0, 50.0), (60, 100), "city"),
+    # a volume whose h, w, d are not multiples of 16 or 32, seen from a
+    # slant above
+    "ragged_volume": ([5.5, 3.2, 40.7], [0.6, 1.0, -0.7], 35.0,
+                      (27.0, 45.0), (57, 93), "ragged"),
+    # the camera in the hollow of the solid 16x16 block
+    "camera_in_block": ([24.5, 24.2, 15.5], [1.0, 0.3, -0.2], 25.0,
+                        (20.0, 30.0), (41, 63), "ragged"),
+    # rays along the 16- and 4-cell block edges (integer origin, axis
+    # views): crossings tie on block boundaries
+    "grazing_block_edges": ([16.0, 4.0, 30.0], [0.0, 1.0, -0.5], 16.0,
+                            (8.0, 8.0), (17, 17), "ragged"),
+    # long slanted rays over hundreds of 16x16 blocks of a table that does
+    # not fit in shared memory
+    "global_table": ([40.3, 60.7, 150.2], [1.0, 0.8, -0.25], 60.0,
+                     (40.0, 64.0), (80, 128), "wide"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(RAY_CASES))
 def test_raycast_kernel_matches_plain(dev, case):
-    ori, vdir, f, c, hw = RAY_CASES[case]
-    vol = torch.from_numpy(_city_volume()).to(dev)
+    ori, vdir, f, c, hw, scene = RAY_CASES[case]
+    vol_np = RAY_SCENES[scene]()
+    vol = torch.from_numpy(vol_np).to(dev)
     rays = vis.ray_basis(torch.tensor(ori, device=dev),
                          torch.tensor(vdir, device=dev),
                          torch.tensor([0.0, 0.0, 1.0], device=dev))
-    ztop = vis.occupancy_top(vol)
+    occ = vis.pack_occupancy(vol)
+    in_smem = occ.coarse2_cols.numel() * 4 <= 96 * 1024
+    assert in_smem == (scene != "wide")
     n0 = vis.raycast.launches
-    got = vis.raycast(vol, rays, f, c, hw, ztop)
-    assert vis.raycast.launches == n0 + 1
-    want = vis.raycast_plain(vol, rays, f, c, hw, ztop)
+    got = vis.raycast(vol, rays, f, c, hw, occ)
+    built = vis.raycast(vol, rays, f, c, hw)  # tables built inside
+    counted = vis.raycast_work(vol, rays, f, c, hw, occ)
+    assert vis.raycast.launches == n0 + 3
+    want = vis.raycast_plain(vol, rays, f, c, hw, occ.ztop)
     torch.cuda.synchronize()
-    assert torch.equal(got[0], want[0])
+    for res in (got, built, counted):
+        assert torch.equal(res[0], want[0])
+        assert torch.equal(res[1], want[1])  # bit-equal, inf on a miss
+    # the kernel steps through at most the cells the walk steps through
+    work = counted[2]
+    assert (work[..., 0] <= want[2]).all() and (work[..., 0] > 0).any()
+    if scene == "wide":  # the rays cross many empty blocks
+        assert int(work[..., 1].sum()) > hw[0] * hw[1]
     hit = want[0] != 0
     assert hit.float().mean() > 0.3
-    torch.testing.assert_close(got[1][hit], want[1][hit], rtol=1e-5, atol=0)
     assert torch.isinf(got[1][~hit]).all()
+    if not in_smem:
+        return
+    # the tables on the card equal the CPU's
+    cpu = vis.pack_occupancy(torch.from_numpy(vol_np))
+    for name in ("occ_words", "coarse_cols", "coarse2_cols"):
+        assert np.array_equal(getattr(occ, name).cpu().numpy(),
+                              getattr(cpu, name).numpy())
 
 
 G1_CASES = {

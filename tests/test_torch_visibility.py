@@ -1,8 +1,9 @@
 # -*- coding: utf-8 -*-
 """PyTorch port vs the JAX package: footprint extrusion, the point-to-
-volume scatter and the first-hit raycast (plain version vs the JAX march,
-on the scenes of tests/test_extrusion_visibility.py), and the host
-helpers of the inference frame.  The kernel-vs-plain checks are in
+volume scatter, the occupancy tables (``pack_occupancy``, bit for bit)
+and the first-hit raycast (plain version vs the JAX march, on the scenes
+of tests/test_extrusion_visibility.py), and the host helpers of the
+inference frame.  The kernel-vs-plain checks are in
 test_torch_kernels.py."""
 
 import jax.numpy as jnp
@@ -163,8 +164,8 @@ class TestVolume:
             valid=torch.from_numpy(valid)).numpy()
         np.testing.assert_array_equal(got, want)
         assert (want > 0).sum() > 1000
-        assert vis.occupancy_top(torch.from_numpy(want.copy())) == float(
-            np.nonzero((want != 0).any((0, 1)))[0].max() + 1)
+        assert vis.pack_occupancy(torch.from_numpy(want.copy())).ztop == (
+            float(np.nonzero((want != 0).any((0, 1)))[0].max() + 1))
 
 
 def _random_volume():
@@ -211,6 +212,80 @@ def _rays_args(scene):
     vol, ori, cam_dir, f, c, hw = scene
     return (vol, np.float32(ori), np.float32(cam_dir),
             np.float32([0, 0, 1]), f, c, hw)
+
+
+def _occ_volume(shape, density, seed):
+    rng = np.random.default_rng(seed)
+    vol = np.zeros(shape, np.int32)
+    occ = rng.random(shape) < density
+    vol[occ] = rng.integers(1, 1000, occ.sum())
+    return vol
+
+
+OCC_VOLUMES = {
+    # shape, share of occupied voxels: d a multiple of 32 and not, h and
+    # w multiples of 16 and not, and an empty volume
+    "d64_hw_aligned": ((32, 48, 64), 0.05),
+    "d40_hw_ragged": ((37, 21, 40), 0.08),
+    "d7_dense": ((18, 50, 7), 0.3),
+    "empty_d33": ((20, 19, 33), 0.0),
+}
+
+
+class TestOccupancy:
+    @pytest.mark.parametrize("name", sorted(OCC_VOLUMES))
+    def test_pack_occupancy_matches_jax(self, name):
+        shape, density = OCC_VOLUMES[name]
+        vol = _occ_volume(shape, density, seed=len(name))
+        occ_words, ztop, coarse, coarse2 = jvis.pack_occupancy(
+            jnp.asarray(vol))
+        got = vis.pack_occupancy(torch.from_numpy(vol))
+        for ours, theirs in ((got.occ_words, occ_words),
+                             (got.coarse_cols, coarse),
+                             (got.coarse2_cols, coarse2)):
+            assert ours.dtype == torch.uint32
+            theirs = np.asarray(theirs)
+            assert theirs.dtype == np.uint32
+            np.testing.assert_array_equal(ours.numpy(), theirs)
+        assert got.ztop == float(ztop)
+        layers = np.nonzero((vol != 0).any((0, 1)))[0]
+        assert got.ztop == (float(layers.max() + 1) if layers.size else 0.0)
+        if density == 0:
+            assert got.ztop == 0.0 and int(got.coarse2_cols.numpy().max()) == 0
+
+    @pytest.mark.parametrize("name", sorted(RAY_SCENES))
+    def test_raycast_with_and_without_tables(self, name):
+        """The wrapper and ray_voxel_intersection give the plain version's
+        ids and depths whether the caller passes the tables or not."""
+        vol, ori, cd, up, f, c, hw = _rays_args(RAY_SCENES[name]())
+        tv = torch.from_numpy(vol)
+        occ = vis.pack_occupancy(tv)
+        rays = vis.ray_basis(torch.from_numpy(ori), torch.from_numpy(cd),
+                             torch.from_numpy(up))
+        want = vis.raycast_plain(tv, rays, f, c, hw, occ.ztop)
+        assert (want[0] != 0).any()
+        for tables in (None, occ):
+            got = vis.raycast(tv, rays, f, c, hw, tables)
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+            res = vis.ray_voxel_intersection(
+                tv, torch.from_numpy(ori), torch.from_numpy(cd),
+                torch.from_numpy(up), f, c, hw, occupancy=tables)
+            assert torch.equal(res.voxel_id, want[0])
+            assert torch.equal(res.depth, want[1])
+        # the diagnostic variant: the plain version steps every cell
+        ids, depth, work = vis.raycast_work(tv, rays, f, c, hw, occ)
+        assert torch.equal(ids, want[0]) and torch.equal(depth, want[1])
+        assert torch.equal(work[..., 0], want[2]) and not work[..., 1].any()
+
+    def test_raycast_rejects_foreign_tables(self):
+        vol = torch.zeros((8, 8, 40), dtype=torch.int32)
+        other = vis.pack_occupancy(torch.zeros((8, 8, 8), dtype=torch.int32))
+        rays = vis.ray_basis(torch.tensor([4.0, 4.0, 4.0]),
+                             torch.tensor([1.0, 0.0, 0.0]),
+                             torch.tensor([0.0, 0.0, 1.0]))
+        with pytest.raises(ValueError):
+            vis.raycast(vol, rays, 2.0, (1.0, 1.0), (2, 2), other)
 
 
 class TestRaycast:
@@ -270,9 +345,9 @@ class TestRaycast:
         vol = torch.zeros((4, 4, 4), dtype=torch.int32)
         rays = torch.zeros(12)
         with pytest.raises(TypeError):
-            vis.raycast(vol.long(), rays, 1.0, (1.0, 1.0), (2, 2), 0.0)
+            vis.raycast(vol.long(), rays, 1.0, (1.0, 1.0), (2, 2))
         with pytest.raises(TypeError):
-            vis.raycast(vol, rays[:9], 1.0, (1.0, 1.0), (2, 2), 0.0)
+            vis.raycast(vol, rays[:9], 1.0, (1.0, 1.0), (2, 2))
         with pytest.raises(ValueError):
             vis.raycast(vol.permute(2, 1, 0), rays, 1.0, (1.0, 1.0),
-                        (2, 2), 0.0)
+                        (2, 2))
