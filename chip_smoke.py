@@ -9,7 +9,8 @@ Phases, each of which fails the run if it fails:
 2. print the card's name and power limit, and turn TF32 off;
 3. hold the blend forward (K1) against its plain PyTorch version at the
    frame's shape (960x540 at 32x32 tiles: 510 tiles, 2048 slots, the
-   16x16 reference gate on), on a seeded scene;
+   16x16 reference gate on), on a seeded scene, and count the work the
+   function needs for its bound (``blend.blend_work``);
 4. hold the first-hit raycast (V1), with the occupancy tables that
    ``build_volume`` caches, against its plain version on the synthetic
    city's 512x512x192 id volume at 960x540: voxel ids and depths
@@ -20,11 +21,12 @@ Phases, each of which fails the run if it fails:
    through ``InferencePipeline.render_trajectory`` (warm-up pass, then a
    timed pass with the kernels' launch counts set to 0 just before it),
    and check that every frame has content and went through K1 and V1;
-7. hold the blend backward (K2) and the sorted segment sum (K3, both of
-   its uses: the hash-grid embedding gradient and the per-Gaussian
-   gradient reduction) against their plain versions on the inputs one
-   full-width REST train step gives them, run K3 twice (bit-equal), and
-   fail if K3 is slower than ``index_add_`` in either use;
+7. hold the blend backward (K2: its live rows, the first ``sum(k_hi)``)
+   and the sorted segment sum (K3, both of its uses: the hash-grid
+   embedding gradient and the per-Gaussian gradient reduction) against
+   their plain versions on the inputs one full-width REST train step
+   gives them, run K2 and K3 twice (bit-equal), and fail if K3 is slower
+   than ``index_add_`` in either use;
 8. take two train steps of a tiny config on the card and on the CPU
    (plain versions) from the same seeded weights and compare losses and
    gradients;
@@ -54,7 +56,9 @@ and the run says so.
 
 It prints timings beside the card's name and power limit, a ``kernels``
 JSON line (launches on the timed passes, time, plain time, library time,
-bound, max error; K3 also per use), and as its last line
+bound, max error; K1 and K2 also the pairs their bounds count and the
+bound over every tested pair as ``tested_bound_ms``; K3 also per use),
+and as its last line
 ``{"ok": true, "device": {...}}``.
 
 Run from the repository root: ``python3 chip_smoke.py``
@@ -76,9 +80,18 @@ import numpy as np
 # FLOP/s, used for each kernel's bound
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
-# fp32 operations per evaluated (pixel, slot) pair in the blend: offsets
-# (2), power (9), exp (1), alpha and clamp (2), the three eligibility tests
-# (3), transmittance (2), weight (1), colour (6)
+# fp32 operations of the blend forward per (pixel, slot) pair tested where
+# the 16x16 gate holds: offsets (2), power (9), one test against the
+# lower of 0 and the slot's alpha floor (1), which settles the pairs that
+# cannot reach alpha_min
+BLEND_FLOP_PER_GATED = 12
+# and per eligible pair (power <= 0, alpha >= alpha_min): exp (1), alpha
+# and clamp (2), the alpha test (1), transmittance and its test (3),
+# weight (1), colour (6)
+BLEND_FLOP_PER_ELIGIBLE = 14
+# per tested pair, gate or not, as if every pair blended (the bound over
+# every tested pair, ``tested_bound_ms``): the two above and the three
+# eligibility tests
 BLEND_FLOP_PER_EVAL = 26
 # operations per DDA step: axis choice (2), cell step and exit test (3),
 # next crossing (3), in-volume test (6), voxel address (4), hit test (1)
@@ -88,11 +101,22 @@ RAYCAST_OPS_PER_STEP = 19
 # (6), two searches of up to five probes of ~9 operations (90), the new
 # cells and crossings (20)
 RAYCAST_OPS_PER_JUMP = 160
-# fp32 operations per (pixel, slot) pair that the blend backward tests:
-# offsets (2), power (9), exp (1), alpha and clamp (2), the eligibility
-# tests (3) and the nine reduction adds (9); counted slots do ~45 more,
-# left out, so the bound is a lower one
+# fp32 operations of the blend backward per (pixel, slot) pair tested
+# where the 16x16 gate holds: offsets (2), power (9), the tests of
+# slot < n_contrib and against the lower of 0 and the alpha floor (2)
+BLEND_BWD_FLOP_PER_GATED = 13
+# and per counted pair: exp (1), alpha and clamp (2), the alpha test (1),
+# T / (1 - alpha) (2), the colour recurrence (12), weight and colour
+# gradients (4), dL/dalpha (12), dL/dG, G dx, G dy (3), the six geometry
+# and opacity gradients (17), the nine reduction adds (9)
+BLEND_BWD_FLOP_PER_COUNTED = 63
+# per tested pair, gate or not (``tested_bound_ms``, which charges no
+# counted pair more): offsets (2), power (9), exp (1), alpha and clamp
+# (2), the eligibility tests (3) and the nine reduction adds (9)
 BLEND_BWD_FLOP_PER_EVAL = 26
+# operations of one (sub-tile, slot) cull test: the four getRect block
+# bounds (12) and the four overlap tests (4)
+BLEND_CULL_OPS = 16
 
 K1_TOL = 1e-5  # image and final_T, max abs
 # K2: per-pixel terms equal the plain version's, the sums over a tile's
@@ -271,27 +295,49 @@ def phase_blend(cfg, device) -> dict:
           f"{K1_TOL}")
     check(share >= MATCH_SHARE, "K1 n_contrib differs from the plain version")
     check(float(want[0].std()) > 0.01, "K1 test scene renders nothing")
+    log("K1 bit-equal to the plain version (image, final_T, n_contrib): "
+        f"{[torch.equal(a, b) for a, b in zip(got, want[:3])]}")
     ms = cuda_time_ms(lambda: blend.blend_forward(*args))
     plain_ms = cuda_time_ms(lambda: blend.blend_forward_plain(*args),
                             iters=2, warmup=1)
     # bound: bytes each input read once / each output written once, and
-    # the evaluated (pixel, slot) pairs of this scene at the fp32 peak
+    # the operations this scene needs: the (pixel, slot) pairs tested
+    # before the pixel saturates where the 16x16 gate holds, the blend of
+    # the eligible ones among them, and one cull test per (sub-tile, slot)
     n_slots = int(counts.sum())
     n_gauss = int(torch.unique(idx[bins.kmask]).numel())
     n_bytes = (n_gauss * attrs.shape[1] * 4 + n_slots * 4 + T * 4
                + H * W * (3 + 1 + 1) * 4)
     n_eval = int(want[3].sum())
+    work = blend.blend_work(attrs, idx, counts, want[3], (0.0, 0.0), consts)
+    # a warp (8 x 4 pixels) runs until its last pixel saturates: its
+    # slots over its mean pixel's, on this scene
+    per_px = blend._to_tiles(want[3], consts, T).float()
+    per_warp = per_px.reshape(T, rc.tile_h // 4, 4, rc.tile_w // 8, 8)
+    overshoot = float(per_warp.amax(dim=(2, 4)).sum()) * 32 / n_eval
+    log(f"K1 saturation: a warp of 8x4 pixels tests {overshoot:.4f} x its "
+        "mean pixel's slots")
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_eval * BLEND_FLOP_PER_EVAL / FP32_FLOP_PER_S * 1e3
+    t_ops = (work.pairs * BLEND_FLOP_PER_GATED
+             + work.eligible * BLEND_FLOP_PER_ELIGIBLE
+             + work.sub_tile_tests * BLEND_CULL_OPS) / FP32_FLOP_PER_S * 1e3
+    t_tested = n_eval * BLEND_FLOP_PER_EVAL / FP32_FLOP_PER_S * 1e3
     log(f"K1: {ms:.4f} ms, plain {plain_ms:.2f} ms; bound: {n_bytes} B -> "
-        f"{t_bytes:.5f} ms, {n_eval} evaluated pairs -> {t_ops:.5f} ms")
+        f"{t_bytes:.5f} ms, {work.pairs} gated pairs ({work.eligible} "
+        f"eligible) and {work.sub_tile_tests} sub-tile tests -> "
+        f"{t_ops:.5f} ms; every tested pair ({n_eval}) -> {t_tested:.5f} ms"
+        f" (tested_bound_ms)")
     return {"name": "blend_fwd", "route": "cuda",
             "source": "gaussiancity_tpu_torch/csrc/blend_fwd.cu",
             "replaces": "gaussiancity_tpu/ops/rasterizer/blend_pallas.py:239",
             "max_abs_err": max(err_img, err_T), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None}
+            "library_ms": None, "gated_pairs": work.pairs,
+            "eligible_pairs": work.eligible,
+            "sub_tile_tests": work.sub_tile_tests, "tested_pairs": n_eval,
+            "tested_bound_ms": max(t_bytes, t_tested),
+            "warp_overshoot": overshoot}
 
 
 def city_pipeline(cfg, device):
@@ -646,44 +692,66 @@ def phase_grad_kernels(captured):
         f"{int(k_hi.max())}")
     check(T == 280 and K == 1024 and (H, W) == (448, 640),
           "K2 must run at the train step's shape")
-    got = blend.blend_backward(*args)
-    want = blend.blend_backward_plain(*args)
+    # the live rows: the first sum(k_hi), compact
+    n_rows = int(k_hi.sum())
+    got = blend.blend_backward(*args)[:n_rows]
+    again = blend.blend_backward(*args)[:n_rows]
+    want = blend.blend_backward_plain(*args)[:n_rows]
     torch.cuda.synchronize()
     scale = want.abs().amax(dim=0)
     err = (got - want).abs()
     rel = float((err / scale.clamp(min=1e-30)).max())
     log(f"K2 vs plain: max|d| {float(err.max()):.3e}, largest |d| / column "
-        f"scale {rel:.3e} (column scales {[f'{v:.3e}' for v in scale]})")
+        f"scale {rel:.3e} (column scales {[f'{v:.3e}' for v in scale]}); "
+        f"repeat bit-equal {torch.equal(got, again)}")
     check(bool((err <= K2_RTOL * scale).all()),
           f"K2 differs from the plain version by more than {K2_RTOL} of a "
           "column's scale")
+    check(torch.equal(got, again), "K2 differs between runs")
     check(float(scale.min()) > 0, "K2 test inputs give a zero column")
     ms = cuda_time_ms(lambda: blend.blend_backward(*args))
     plain_ms = cuda_time_ms(lambda: blend.blend_backward_plain(*args),
                             iters=2, warmup=1)
     # bound: slot indices and the rows of the Gaussians they name read
-    # once, four pixel planes read once, [T*K, 9] rows written once; and
-    # every (in-image pixel, slot < k_hi) pair tested
+    # once, four pixel planes read once, the live rows written once; the
+    # operations this step needs: the (pixel, slot < n_contrib) pairs
+    # where the 16x16 gate holds, ~63 more for each counted one, and one
+    # cull test per (sub-tile, slot)
+    n_contrib = args[7]
+    live = torch.arange(K, device=idx.device)[None, :] < k_hi[:, None]
+    n_gauss = int(torch.unique(idx[live]).numel())
+    n_bytes = (n_rows * 4 + n_gauss * 10 * 4 + T * 4 + H * W * 6 * 4
+               + n_rows * 9 * 4)
+    work = blend.blend_work(attrs, idx, k_hi, n_contrib, origin, consts)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (work.pairs * BLEND_BWD_FLOP_PER_GATED
+             + work.eligible * BLEND_BWD_FLOP_PER_COUNTED
+             + work.sub_tile_tests * BLEND_CULL_OPS) / FP32_FLOP_PER_S * 1e3
+    # the bound over every (in-image pixel, slot < k_hi) pair tested, with
+    # all [T * K, 9] rows written
     tid = torch.arange(T, device=idx.device)
     n_tx = consts.n_tx
     px_w = torch.clamp(W - (tid % n_tx) * consts.tile_w, max=consts.tile_w)
     px_h = torch.clamp(H - (tid // n_tx) * consts.tile_h, max=consts.tile_h)
     n_eval = int((px_w * px_h * k_hi).sum())
-    live = torch.arange(K, device=idx.device)[None, :] < k_hi[:, None]
-    n_gauss = int(torch.unique(idx[live]).numel())
-    n_bytes = (int(k_hi.sum()) * 4 + n_gauss * 10 * 4 + T * 4
-               + H * W * 6 * 4 + T * K * 9 * 4)
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_eval * BLEND_BWD_FLOP_PER_EVAL / FP32_FLOP_PER_S * 1e3
+    t_tested = max((n_bytes - n_rows * 9 * 4 + T * K * 9 * 4)
+                   / HBM_BYTES_PER_S,
+                   n_eval * BLEND_BWD_FLOP_PER_EVAL / FP32_FLOP_PER_S) * 1e3
     log(f"K2: {ms:.4f} ms, plain {plain_ms:.2f} ms; bound: {n_bytes} B -> "
-        f"{t_bytes:.5f} ms, {n_eval} tested pairs -> {t_ops:.5f} ms")
+        f"{t_bytes:.5f} ms, {work.pairs} gated pairs ({work.eligible} "
+        f"counted) and {work.sub_tile_tests} sub-tile tests -> {t_ops:.5f} "
+        f"ms; every tested pair ({n_eval}) -> {t_tested:.5f} ms "
+        "(tested_bound_ms)")
     k2 = {"name": "blend_bwd", "route": "cuda",
           "source": "gaussiancity_tpu_torch/csrc/blend_bwd.cu",
           "replaces": "gaussiancity_tpu/ops/rasterizer/blend_pallas.py:350",
           "max_abs_err": float(err.max()), "ms": ms, "plain_ms": plain_ms,
           "bound_ms": max(t_bytes, t_ops),
           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-          "library_ms": None}
+          "library_ms": None, "gated_pairs": work.pairs,
+          "counted_pairs": work.eligible,
+          "sub_tile_tests": work.sub_tile_tests, "tested_pairs": n_eval,
+          "tested_bound_ms": t_tested}
 
     uses = {}
     for keys, rows, n_rows in captured["segment_sum"]:

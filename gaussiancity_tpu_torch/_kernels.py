@@ -1,7 +1,8 @@
 # -*- coding: utf-8 -*-
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
+Each ``csrc/<name>.cu`` (with the shared headers ``csrc/*.cuh``) has a
+plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``_build/lib<name>.so`` at first use,
 then loaded with ``ctypes``.  Importing this module needs no ``nvcc``;
 only a launch does.  Builds of several sources run as parallel ``nvcc``
@@ -34,16 +35,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 LL = ctypes.c_longlong
 _ARGTYPES = {
-    # attrs, gauss_index, counts, bg, T, K, n_tx, tile_h, tile_w, img_h,
-    # img_w, origin_x, origin_y, ref_gate, alpha_min, alpha_max, t_eps,
-    # image, final_T, n_contrib, stream
-    "blend_fwd": [P, P, P, P, I, I, I, I, I, I, I, F, F, I, F, F, F,
-                  P, P, P, P],
-    # attrs, gauss_index, k_hi, T, K, n_tx, tile_h, tile_w, img_h, img_w,
-    # origin_x, origin_y, ref_gate, alpha_min, alpha_max, g_out, bg_dot_g,
-    # final_T, n_contrib, grads, stream
-    "blend_bwd": [P, P, P, I, I, I, I, I, I, I, F, F, I, F, F, P, P, P, P,
-                  P, P],
+    # attrs, gauss_index, counts, bg, T, K, n_tx, tile_h, tile_w, sub_h,
+    # sub_w, img_h, img_w, origin_x, origin_y, ref_gate, alpha_min,
+    # alpha_max, t_eps, scratch, image, final_T, n_contrib, stream
+    "blend_fwd": [P, P, P, P, I, I, I, I, I, I, I, I, I, F, F, I, F, F, F,
+                  P, P, P, P, P],
+    # attrs, gauss_index, k_hi, T, K, n_tx, tile_h, tile_w, sub_h, sub_w,
+    # img_h, img_w, origin_x, origin_y, ref_gate, alpha_min, alpha_max,
+    # g_out, bg_dot_g, final_T, n_contrib, scratch, grads, stream
+    "blend_bwd": [P, P, P, I, I, I, I, I, I, I, I, I, F, F, I, F, F, P, P,
+                  P, P, P, P, P],
     # keys, rows, L, M, C, R, out, stream
     "segment_sum": [P, P, I, I, I, I, P, P],
     # volume, occ_words, coarse_cols, coarse2_cols, h, w, d, rays (origin,
@@ -77,8 +78,11 @@ def library_path(name: str) -> Path:
 
 
 def _up_to_date(name: str) -> bool:
-    lib, src = library_path(name), CSRC / f"{name}.cu"
-    return lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime
+    """The library is newer than its source and every shared header."""
+    lib = library_path(name)
+    sources = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return lib.exists() and all(lib.stat().st_mtime >= src.stat().st_mtime
+                                for src in sources)
 
 
 def build(names: Optional[Iterable[str]] = None,

@@ -19,9 +19,16 @@ renderCUDA (forward.cu:238-346) and of the JAX package's
 
 The backward replays each pixel's slots ``k < n_contrib`` back to front
 (``_blend_bwd_impl``, upstream backward.cu:427-581) and returns per-(tile,
-slot) gradient rows; ``reduce_slot_grads`` sums them into per-Gaussian rows
-through kernel K3, bounded by ``grad_capacity`` / ``grad_budget`` with the
-overflow counted by ``grad_trunc_count`` (``blend.py:405-431,496-554``).
+slot) gradient rows, compact: tile ``t``'s rows ``k < k_hi[t]`` at row
+``slot_row_offsets(k_hi)[t] + k``; ``reduce_slot_grads`` sums them into
+per-Gaussian rows through kernel K3, bounded by ``grad_capacity`` /
+``grad_budget`` with the overflow counted by ``grad_trunc_count``
+(``blend.py:405-431,496-554``).
+
+Both kernels work on sub-tiles of at most ``SUB_TILE_PIXELS`` pixels
+(``sub_tile_shape``) and drop, per sub-tile, the slots whose reference
+gate holds at none of its pixels; ``blend_work`` counts the work the two
+functions need.
 """
 
 from __future__ import annotations
@@ -40,6 +47,11 @@ N_GRAD = 9  # gradient rows: mx, my, ca, cb, cc, op, r, g, b
 # rounds the budget; 32 slots (a warp's worth) wastes at most 31 slots of
 # budget per tile, against 127 at the JAX package's TPU page of 128.
 DEFAULT_PAGE = 32
+# the kernels' work unit: one thread per pixel of a sub-tile of at most
+# this many pixels; K2 joins the sub-tiles of a tile in one thread block
+# cluster, portable up to 8 blocks
+SUB_TILE_PIXELS = 256
+MAX_SUB_TILES = 8
 
 
 class BlendConsts(NamedTuple):
@@ -50,6 +62,35 @@ class BlendConsts(NamedTuple):
     alpha_max: float = 0.99
     t_eps: float = 1e-4
     ref_gate: bool = False
+
+
+def sub_tile_shape(tile_h: int, tile_w: int) -> Tuple[int, int]:
+    """(sub_h, sub_w) of the kernels' sub-tiles: the tile halved, the
+    longer side first (rows on a tie), until at most ``SUB_TILE_PIXELS``
+    pixels remain: 16x16 of a 32x32 tile, 8x32 of an 8x128 tile.  Any
+    tile of 1..1024 pixels splits into at most ``MAX_SUB_TILES``."""
+    sub_h, sub_w = tile_h, tile_w
+    while sub_h * sub_w > SUB_TILE_PIXELS:
+        if sub_h >= sub_w:
+            sub_h = -(-sub_h // 2)
+        else:
+            sub_w = -(-sub_w // 2)
+    return sub_h, sub_w
+
+
+def _gate_rect(mx, my, rd):
+    """The slot's getRect bbox in 16x16 sensor blocks, [xlo, xhi) x
+    [ylo, yhi), as the kernels compute it."""
+    return (torch.floor((mx - rd) * 0.0625),
+            torch.floor((mx + rd + 15.0) * 0.0625),
+            torch.floor((my - rd) * 0.0625),
+            torch.floor((my + rd + 15.0) * 0.0625))
+
+
+def _pixel_gate(bx16, by16, rect):
+    """The reference gate at the pixels of 16x16 block (bx16, by16)."""
+    xlo, xhi, ylo, yhi = rect
+    return (bx16 >= xlo) & (bx16 < xhi) & (by16 >= ylo) & (by16 < yhi)
 
 
 def _pixel_planes(consts: BlendConsts, T: int, origin, device):
@@ -122,13 +163,8 @@ def blend_forward_plain(attrs: torch.Tensor, gauss_index: torch.Tensor,
         alpha = torch.clamp(op * torch.exp(power), max=consts.alpha_max)
         eligible = active & (power <= 0.0) & (alpha >= consts.alpha_min)
         if consts.ref_gate:
-            rd = col[9]
-            xlo = torch.floor((mx - rd) * 0.0625)
-            xhi = torch.floor((mx + rd + 15.0) * 0.0625)
-            ylo = torch.floor((my - rd) * 0.0625)
-            yhi = torch.floor((my + rd + 15.0) * 0.0625)
-            eligible = eligible & ((bx16 >= xlo) & (bx16 < xhi)
-                                   & (by16 >= ylo) & (by16 < yhi))
+            eligible = eligible & _pixel_gate(bx16, by16,
+                                              _gate_rect(mx, my, col[9]))
         n_eval += (active & ~done).to(torch.int32)
         test_T = T_acc * (1.0 - alpha)
         live = eligible & ~done
@@ -171,8 +207,12 @@ def _check_inputs(attrs, gauss_index, counts, bg, consts, img_h, img_w):
     if bg.shape != (3,):
         raise ValueError("bg must be [3]")
     if not 0 < consts.tile_h * consts.tile_w <= 1024:
-        raise ValueError("a tile must hold 1..1024 pixels (one thread "
-                         "each)")
+        raise ValueError("a tile must hold 1..1024 pixels")
+
+
+def _kernel_attrs(attrs: torch.Tensor) -> torch.Tensor:
+    """attrs as the kernels copy them: rows in 8-byte pieces."""
+    return attrs if attrs.data_ptr() % 8 == 0 else attrs.clone()
 
 
 def blend_forward(attrs: torch.Tensor, gauss_index: torch.Tensor,
@@ -193,18 +233,22 @@ def blend_forward(attrs: torch.Tensor, gauss_index: torch.Tensor,
                                    img_h, img_w, consts)[:3]
     T, K = gauss_index.shape
     dev = attrs.device
+    attrs = _kernel_attrs(attrs)
     image = torch.empty((3, img_h, img_w), dtype=torch.float32, device=dev)
     final_T = torch.empty((img_h, img_w), dtype=torch.float32, device=dev)
     n_contrib = torch.empty((img_h, img_w), dtype=torch.int32, device=dev)
     if T:
+        # the tile order and the work-unit counter, written by the launch
+        scratch = torch.empty(T + 1, dtype=torch.int32, device=dev)
         _kernels.launch(
             "blend_fwd", attrs.data_ptr(), gauss_index.data_ptr(),
             counts.data_ptr(), bg.data_ptr(), T, K, consts.n_tx,
-            consts.tile_h, consts.tile_w, img_h, img_w, float(origin[0]),
-            float(origin[1]), int(consts.ref_gate), consts.alpha_min,
-            consts.alpha_max, consts.t_eps, image.data_ptr(),
-            final_T.data_ptr(), n_contrib.data_ptr(),
-            _kernels.stream_handle(dev))
+            consts.tile_h, consts.tile_w,
+            *sub_tile_shape(consts.tile_h, consts.tile_w), img_h, img_w,
+            float(origin[0]), float(origin[1]), int(consts.ref_gate),
+            consts.alpha_min, consts.alpha_max, consts.t_eps,
+            scratch.data_ptr(), image.data_ptr(), final_T.data_ptr(),
+            n_contrib.data_ptr(), _kernels.stream_handle(dev))
         blend_forward.launches += 1
     return image, final_T, n_contrib
 
@@ -246,14 +290,23 @@ def grad_trunc_count(k_hi: torch.Tensor, grad_capacity: int,
     return trunc.to(torch.int32)
 
 
+def slot_row_offsets(k_hi: torch.Tensor) -> torch.Tensor:
+    """[T] int64: the first gradient row of each tile, the exclusive prefix
+    sum of ``k_hi``; tile ``t``'s slot ``k < k_hi[t]`` has row
+    ``offsets[t] + k``."""
+    k_hi = k_hi.long()
+    return torch.cumsum(k_hi, 0) - k_hi
+
+
 def blend_backward_plain(attrs: torch.Tensor, gauss_index: torch.Tensor,
                          k_hi: torch.Tensor, origin: Tuple[float, float],
                          g_out: torch.Tensor, bg_dot_g: torch.Tensor,
                          final_T: torch.Tensor, n_contrib: torch.Tensor,
                          consts: BlendConsts) -> torch.Tensor:
     """Plain PyTorch version of K2, one slot per step over all tiles, back
-    to front.  Returns [T * K, 9] slot-major gradient rows (mx, my, ca,
-    cb, cc, op, r, g, b); rows of slots ``k >= k_hi`` are 0."""
+    to front.  Returns [T * K, 9] gradient rows (mx, my, ca, cb, cc, op,
+    r, g, b) in the compact layout of ``slot_row_offsets``; the rows past
+    ``sum(k_hi)`` are 0."""
     T, K = gauss_index.shape
     dev = attrs.device
     px, py = _pixel_planes(consts, T, origin, dev)
@@ -270,7 +323,8 @@ def blend_backward_plain(attrs: torch.Tensor, gauss_index: torch.Tensor,
     ar = [zero] * 3
     la = zero
     lc = [zero] * 3
-    grads = torch.zeros((T, K, N_GRAD), dtype=torch.float32, device=dev)
+    grads = torch.zeros((T * K, N_GRAD), dtype=torch.float32, device=dev)
+    offsets = slot_row_offsets(k_hi)
     k_end = int(k_hi.max()) if T else 0
     for k in reversed(range(k_end)):
         a = attrs[gauss_index[:, k].long()]  # [T, 10]
@@ -283,11 +337,7 @@ def blend_backward_plain(attrs: torch.Tensor, gauss_index: torch.Tensor,
         alpha = torch.clamp(op * G, max=consts.alpha_max)
         ok = (k < nc) & (power <= 0.0) & (alpha >= consts.alpha_min)
         if consts.ref_gate:
-            rd = col[9]
-            ok = ok & ((bx16 >= torch.floor((mx - rd) * 0.0625))
-                       & (bx16 < torch.floor((mx + rd + 15.0) * 0.0625))
-                       & (by16 >= torch.floor((my - rd) * 0.0625))
-                       & (by16 < torch.floor((my + rd + 15.0) * 0.0625)))
+            ok = ok & _pixel_gate(bx16, by16, _gate_rect(mx, my, col[9]))
         one_m_alpha = torch.where(ok, 1.0 - alpha, torch.ones_like(alpha))
         T_cur = T_cur / one_m_alpha  # T before this slot blended
         ar = [torch.where(ok, la * lc[c] + (1.0 - la) * ar[c], ar[c])
@@ -305,9 +355,11 @@ def blend_backward_plain(attrs: torch.Tensor, gauss_index: torch.Tensor,
                 -0.5 * gdx * dx * dl_dG, -gdx * dy * dl_dG,
                 -0.5 * gdy * dy * dl_dG, G * dl_dalpha,
                 w * g[0], w * g[1], w * g[2]]
-        grads[:, k] = torch.stack(
-            [torch.where(ok, r, zero).sum(dim=(1, 2)) for r in rows], -1)
-    return grads.reshape(T * K, N_GRAD)
+        live = k < k_hi
+        grads[offsets[live] + k] = torch.stack(
+            [torch.where(ok, r, zero).sum(dim=(1, 2)) for r in rows],
+            -1)[live]
+    return grads
 
 
 def blend_backward(attrs: torch.Tensor, gauss_index: torch.Tensor,
@@ -321,7 +373,11 @@ def blend_backward(attrs: torch.Tensor, gauss_index: torch.Tensor,
     int32 from ``tile_k_hi``; ``g_out`` [3, H, W] the image cotangent,
     ``bg_dot_g`` [H, W] = bg . g_out + the final_T cotangent; ``final_T``
     and ``n_contrib`` [H, W] from the forward.  Returns [T * K, 9]
-    float32 slot-major rows (mx, my, ca, cb, cc, op, r, g, b).
+    float32 rows (mx, my, ca, cb, cc, op, r, g, b), compact: tile ``t``'s
+    slot ``k < k_hi[t]`` at row ``slot_row_offsets(k_hi)[t] + k``.  The
+    first ``sum(k_hi)`` rows are the result: the kernel writes no other
+    row (``sum(k_hi)`` stays on the card, so the shape is its bound
+    ``T * K``).
 
     CUDA tensors go to kernel K2; CPU tensors to the plain version."""
     img_h, img_w = final_T.shape
@@ -343,17 +399,23 @@ def blend_backward(attrs: torch.Tensor, gauss_index: torch.Tensor,
     if not attrs.is_cuda:
         return blend_backward_plain(attrs, gauss_index, k_hi, origin, g_out,
                                     bg_dot_g, final_T, n_contrib, consts)
-    if (consts.tile_h * consts.tile_w) % 32:
-        raise ValueError("K2 needs tiles of a whole number of warps")
+    sub_h, sub_w = sub_tile_shape(consts.tile_h, consts.tile_w)
+    if (-(-consts.tile_h // sub_h)) * (-(-consts.tile_w // sub_w)) \
+            > MAX_SUB_TILES:
+        raise ValueError(f"K2 joins at most {MAX_SUB_TILES} sub-tiles of a "
+                         "tile in one cluster")
+    attrs = _kernel_attrs(attrs)
     grads = torch.empty((T * K, N_GRAD), dtype=torch.float32, device=dev)
     if T:
+        # the tile order and the row offsets, written by the launch
+        scratch = torch.empty(2 * T, dtype=torch.int32, device=dev)
         _kernels.launch(
             "blend_bwd", attrs.data_ptr(), gauss_index.data_ptr(),
             k_hi.data_ptr(), T, K, consts.n_tx, consts.tile_h, consts.tile_w,
-            img_h, img_w, float(origin[0]), float(origin[1]),
+            sub_h, sub_w, img_h, img_w, float(origin[0]), float(origin[1]),
             int(consts.ref_gate), consts.alpha_min, consts.alpha_max,
             g_out.data_ptr(), bg_dot_g.data_ptr(), final_T.data_ptr(),
-            n_contrib.data_ptr(), grads.data_ptr(),
+            n_contrib.data_ptr(), scratch.data_ptr(), grads.data_ptr(),
             _kernels.stream_handle(dev))
         blend_backward.launches += 1
     return grads
@@ -365,8 +427,9 @@ blend_backward.launches = 0
 def reduce_slot_grads(grads: torch.Tensor, gauss_index: torch.Tensor,
                       k_hi: torch.Tensor, n_gauss: int, grad_capacity: int,
                       grad_budget: int, page: int) -> torch.Tensor:
-    """Sum the per-(tile, slot) rows [T * K, 9] into per-Gaussian rows
-    [n_gauss, 9] through the binning index (``scatter_packed_grads``).
+    """Sum the per-(tile, slot) rows of ``blend_backward`` (the compact
+    layout of ``slot_row_offsets``) into per-Gaussian rows [n_gauss, 9]
+    through the binning index (``scatter_packed_grads``).
 
     Each tile keeps its slots ``k < min(k_hi, grad_capacity)``.  With a
     ``grad_budget`` the kept slots are enumerated in whole pages, tile
@@ -391,13 +454,63 @@ def reduce_slot_grads(grads: torch.Tensor, gauss_index: torch.Tensor,
         k = ((p - (cum - pages_t)[t_of_p])[:, None] * page
              + torch.arange(page, device=dev)[None, :])
         valid = (p < cum[-1])[:, None] & (k < kh[t_of_p][:, None])
-        row = t_of_p[:, None] * K + k
+        tile = t_of_p[:, None]
     else:
-        k = torch.arange(_grad_slots(grad_capacity, K), device=dev)
-        valid = k[None, :] < kh[:, None]
-        row = torch.arange(T, device=dev)[:, None] * K + k[None, :]
+        k = torch.arange(_grad_slots(grad_capacity, K), device=dev)[None, :]
+        valid = k < kh[:, None]
+        tile = torch.arange(T, device=dev)[:, None]
     valid = valid.reshape(-1)
-    row = torch.where(valid, row.reshape(-1), 0)
-    keys = torch.where(valid, gauss_index.reshape(-1)[row].long(),
-                       torch.full_like(row, n_gauss))
+    slot = torch.where(valid, (tile * K + k).reshape(-1), 0)
+    row = torch.where(valid, (slot_row_offsets(k_hi)[tile] + k).reshape(-1),
+                      0)
+    keys = torch.where(valid, gauss_index.reshape(-1)[slot].long(),
+                       torch.full_like(slot, n_gauss))
     return hash_grid_bwd.reduce_rows(keys, grads[row], n_gauss)
+
+
+class BlendWork(NamedTuple):
+    pairs: int  # (pixel, slot) pairs tested, where the gate holds
+    eligible: int  # of those, power <= 0 and alpha >= alpha_min
+    sub_tile_tests: int  # (sub-tile, slot) cull tests
+
+
+def blend_work(attrs: torch.Tensor, gauss_index: torch.Tensor,
+               n_slots: torch.Tensor, limit: torch.Tensor,
+               origin: Tuple[float, float],
+               consts: BlendConsts) -> BlendWork:
+    """The work the blend functions need, for their bounds: every
+    in-image pixel p of tile t tests the slots k < min(n_slots[t],
+    limit[p]) (``limit`` [H, W]: the forward's ``n_evaluated``, the
+    backward's ``n_contrib``); a pair counts where the reference gate
+    holds at the pixel (every pair without the gate).  Each sub-tile
+    tests once, for the cull, every slot below its pixels' largest
+    limit."""
+    T, K = gauss_index.shape
+    img_h, img_w = limit.shape
+    dev = attrs.device
+    lim = torch.minimum(_to_tiles(limit.long(), consts, T),
+                        n_slots.long()[:, None, None])
+    px, py = _pixel_planes(consts, T, origin, dev)
+    bx16, by16 = torch.floor(px * 0.0625), torch.floor(py * 0.0625)
+    pairs = torch.zeros((), dtype=torch.long, device=dev)
+    eligible = torch.zeros((), dtype=torch.long, device=dev)
+    for k in range(int(lim.max()) if T else 0):
+        a = attrs[gauss_index[:, k].long()]
+        col = [a[:, c, None, None] for c in range(ATTR_COLS)]
+        mx, my, ca, cb, cc, op = col[:6]
+        live = k < lim
+        if consts.ref_gate:
+            live = live & _pixel_gate(bx16, by16, _gate_rect(mx, my, col[9]))
+        dx, dy = mx - px, my - py
+        power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+        alpha = torch.clamp(op * torch.exp(power), max=consts.alpha_max)
+        pairs += live.sum()
+        eligible += (live & (power <= 0.0)
+                     & (alpha >= consts.alpha_min)).sum()
+    sub_h, sub_w = sub_tile_shape(consts.tile_h, consts.tile_w)
+    n_sy = -(-consts.tile_h // sub_h)
+    n_sx = -(-consts.tile_w // sub_w)
+    pad = lim.new_zeros((T, n_sy * sub_h, n_sx * sub_w))
+    pad[:, :consts.tile_h, :consts.tile_w] = lim
+    tests = pad.reshape(T, n_sy, sub_h, n_sx, sub_w).amax(dim=(2, 4)).sum()
+    return BlendWork(int(pairs), int(eligible), int(tests))

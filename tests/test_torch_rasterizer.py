@@ -500,3 +500,171 @@ class TestRasterizeGradients:
         assert np.abs(want).max() > 0
         np.testing.assert_allclose(rows.numpy(), want, rtol=0,
                                    atol=GRAD_RTOL * np.abs(want).max())
+
+
+def _port_bins(scene, W, H, th, tw, K, gate, window):
+    """The port's preprocess and binning of a scene -> the blend's
+    inputs (attrs, bins, H, W, consts, origin)."""
+    _, tcam = np_camera(W=W, H=H)
+    n = scene[0].shape[0]
+    prep = preprocess.preprocess(*torch_args(scene),
+                                 torch.ones(n, dtype=torch.bool), tcam)
+    origin = (0.0, 0.0)
+    bin_prep = prep
+    if window is not None:
+        x0, y0, W, H = window
+        origin = (float(x0), float(y0))
+        bin_prep = prep._replace(mx=prep.mx - x0, my=prep.my - y0)
+    bins = binning.bin_gaussians(bin_prep, H, W, th, tw, K, gate16=gate,
+                                 gate_origin=origin if window else None)
+    _, n_tx = binning.tile_grid(H, W, th, tw)
+    consts = blend.BlendConsts(tile_h=th, tile_w=tw, n_tx=n_tx,
+                               ref_gate=gate)
+    return prep.attrs10(), bins, H, W, consts, origin
+
+
+def _np_gate_pixels(attrs, idx, consts, origin, H, W):
+    """Brute force in numpy float32: for every tile t, in-image pixel
+    (iy, ix) and slot k, whether the reference gate holds -> [T, TH, TW,
+    K] bool, and the in-image mask [T, TH, TW]."""
+    a = attrs.numpy()[idx.numpy()]  # [T, K, 10]
+    f16 = np.float32(0.0625)
+    mx, my, rd = a[..., 0], a[..., 1], a[..., 9]
+    xlo = np.floor((mx - rd) * f16)
+    xhi = np.floor((mx + rd + np.float32(15.0)) * f16)
+    ylo = np.floor((my - rd) * f16)
+    yhi = np.floor((my + rd + np.float32(15.0)) * f16)
+    T = idx.shape[0]
+    th, tw = consts.tile_h, consts.tile_w
+    t = np.arange(T)
+    x0 = ((t % consts.n_tx) * tw).astype(np.float32) + np.float32(origin[0])
+    y0 = ((t // consts.n_tx) * th).astype(np.float32) + np.float32(origin[1])
+    px = x0[:, None] + np.arange(tw, dtype=np.float32)[None]  # [T, TW]
+    py = y0[:, None] + np.arange(th, dtype=np.float32)[None]  # [T, TH]
+    bx, by = np.floor(px * f16), np.floor(py * f16)
+    gx = (bx[:, None, :, None] >= xlo[:, None, None, :]) \
+        & (bx[:, None, :, None] < xhi[:, None, None, :])
+    gy = (by[:, :, None, None] >= ylo[:, None, None, :]) \
+        & (by[:, :, None, None] < yhi[:, None, None, :])
+    inside = (((t % consts.n_tx) * tw)[:, None, None]
+              + np.arange(tw)[None, None] < W) \
+        & (((t // consts.n_tx) * th)[:, None, None]
+           + np.arange(th)[None, :, None] < H)
+    return gx & gy, inside
+
+
+def _sub_tile_keep(attrs, gauss_index, n_slots, origin, img_h, img_w,
+                   consts):
+    """[T, S, K] bool: the kernels' cull (``blend_common.cuh`` locate and
+    compact) in PyTorch.  Sub-tile s of tile t keeps slot k < n_slots[t]
+    unless it has no in-image pixel or, with the reference gate, the
+    slot's getRect block range misses every 16x16 block of its in-image
+    pixels (then the gate fails at each of them)."""
+    T, K = gauss_index.shape
+    sub_h, sub_w = blend.sub_tile_shape(consts.tile_h, consts.tile_w)
+    n_sx = -(-consts.tile_w // sub_w)
+    n_sy = -(-consts.tile_h // sub_h)
+    tid = torch.arange(T)
+    tx, ty = tid % consts.n_tx, tid // consts.n_tx
+    sub = torch.arange(n_sx * n_sy)
+    sx0, sy0 = (sub % n_sx) * sub_w, (sub // n_sx) * sub_h
+    sx1 = torch.minimum(torch.clamp(sx0 + sub_w, max=consts.tile_w)[None],
+                        (img_w - tx * consts.tile_w)[:, None])
+    sy1 = torch.minimum(torch.clamp(sy0 + sub_h, max=consts.tile_h)[None],
+                        (img_h - ty * consts.tile_h)[:, None])
+    x0 = (tx * consts.tile_w).float() + float(origin[0])
+    y0 = (ty * consts.tile_h).float() + float(origin[1])
+
+    def block(base, pix):
+        return torch.floor((base[:, None] + pix.float()) * 0.0625)
+
+    # the 16x16-block range of each sub-tile's in-image pixels, [T, S]
+    bxl, bxh = block(x0, sx0[None]), block(x0, sx1 - 1)
+    byl, byh = block(y0, sy0[None]), block(y0, sy1 - 1)
+    nonempty = (sx1 > sx0) & (sy1 > sy0)
+    keep = nonempty[:, :, None] & (
+        torch.arange(K) < n_slots[:, None])[:, None]
+    if consts.ref_gate:
+        a = attrs[gauss_index.long()]  # [T, K, 10]
+        xlo, xhi, ylo, yhi = (r[:, None] for r in
+                              blend._gate_rect(a[..., 0], a[..., 1],
+                                               a[..., 9]))
+        keep = keep & ((xlo <= bxh[..., None]) & (xhi > bxl[..., None])
+                       & (ylo <= byh[..., None]) & (yhi > byl[..., None]))
+    return keep
+
+
+WORK_CASES = {
+    # scene, image (W, H), tiles (h, w), capacity, window
+    "gate_window32": (lambda: np_scene(2, n=160), (256, 64), (32, 32), 64,
+                      (92, 12, 128, 32)),
+    "gate_tiles8x128": (lambda: np_scene(1, n=200), (256, 64), (8, 128), 64,
+                        None),
+    "gate_tiles16_edge": (lambda: np_scene(5, n=200), (200, 60), (16, 16),
+                          64, None),
+}
+
+
+class TestSubTileWork:
+    def test_sub_tiles_cover_every_tile(self):
+        for th in range(1, 1025):
+            for tw in range(1, 1024 // th + 1):
+                sh, sw = blend.sub_tile_shape(th, tw)
+                n = (-(-th // sh)) * (-(-tw // sw))
+                assert sh * sw <= blend.SUB_TILE_PIXELS and sh <= th
+                assert sw <= tw and n <= blend.MAX_SUB_TILES, (th, tw)
+        assert blend.sub_tile_shape(32, 32) == (16, 16)
+        assert blend.sub_tile_shape(8, 128) == (8, 32)
+
+    @pytest.mark.parametrize("case", sorted(WORK_CASES))
+    def test_cull_drops_no_gated_slot(self, case):
+        make, (W, H), (th, tw), K, window = WORK_CASES[case]
+        attrs, bins, H, W, consts, origin = _port_bins(
+            make(), W, H, th, tw, K, True, window)
+        keep = _sub_tile_keep(attrs, bins.gauss_index, bins.counts, origin,
+                              H, W, consts).numpy()
+        gate, inside = _np_gate_pixels(attrs, bins.gauss_index, consts,
+                                       origin, H, W)
+        sh, sw = blend.sub_tile_shape(th, tw)
+        n_sx = -(-tw // sw)
+        sub = (np.arange(th)[:, None] // sh) * n_sx \
+            + np.arange(tw)[None] // sw  # [TH, TW]
+        counts = bins.counts.numpy()
+        live = np.arange(K)[None] < counts[:, None]  # [T, K]
+        n_dropped = 0
+        for s in range(keep.shape[1]):
+            pix = inside & (sub == s)[None]  # [T, TH, TW]
+            passes = (gate & pix[..., None]).any(axis=(1, 2))  # [T, K]
+            dropped = live & ~keep[:, s]
+            assert not (dropped & passes).any()
+            assert not (keep[:, s] & ~live).any()  # only slots < count
+            n_dropped += int((dropped & pix.any(axis=(1, 2))[:, None]).sum())
+        # 16x16 tiles at a 16-aligned origin are one gate block each, which
+        # binning already culls for
+        assert (n_dropped == 0) == (case == "gate_tiles16_edge")
+
+    @pytest.mark.parametrize("case", sorted(WORK_CASES))
+    def test_blend_work_counts_gated_pairs(self, case):
+        make, (W, H), (th, tw), K, window = WORK_CASES[case]
+        attrs, bins, H, W, consts, origin = _port_bins(
+            make(), W, H, th, tw, K, True, window)
+        idx, counts = bins.gauss_index, bins.counts
+        _, _, n_contrib, n_eval = blend.blend_forward_plain(
+            attrs, idx, counts, origin, torch.zeros(3), H, W, consts)
+        k_hi = blend.tile_k_hi(counts, n_contrib, consts)
+        gate, inside = _np_gate_pixels(attrs, idx, consts, origin, H, W)
+        T = idx.shape[0]
+        sh, sw = blend.sub_tile_shape(th, tw)
+        for n_slots, limit in ((counts, n_eval), (k_hi, n_contrib)):
+            work = blend.blend_work(attrs, idx, n_slots, limit, origin,
+                                    consts)
+            lim = blend._to_tiles(limit, consts, T).numpy()
+            lim = np.minimum(lim, n_slots.numpy()[:, None, None])
+            lim = np.where(inside, lim, 0)
+            tested = np.arange(K)[None, None, None] < lim[..., None]
+            assert work.pairs == int((tested & gate).sum()) > 0
+            assert 0 < work.eligible <= work.pairs
+            tests = sum(int(lim[:, y:y + sh, x:x + sw].max(axis=(1, 2))
+                            .sum()) for y in range(0, th, sh)
+                        for x in range(0, tw, sw))
+            assert work.sub_tile_tests == tests
