@@ -33,8 +33,9 @@ Phases, each of which fails the run if it fails:
 9. train the REST generator at the REST recipe's full widths through
    ``Trainer.train_step`` (2 warm-up steps, then 5 timed steps with the
    launch counts set to 0 just before them): finite losses, changed
-   weights, ``RasterGradTruncated`` 0, and K1, K2, K3 (both uses) and G1
-   on every step;
+   weights, ``RasterGradTruncated`` 0, and K1, K2, K3 (both uses), G1 and
+   G1b on every step; then the backward stage with the hash-grid backward
+   on G1b and on its plain version in turns;
 10. render a small REST + BLDG (PTv3) trajectory on the compact path on
     the card and on the CPU and compare the frames;
 11. render the two-model frame at full widths (REST recipe seed 0, BLDG
@@ -43,12 +44,18 @@ Phases, each of which fails the run if it fails:
     pass, whose first frame's hash-grid inputs are kept, then a timed pass
     with the launch counts set to 0): content, a non-empty BLDG bucket and
     K1, V1 and G1 on every frame, the stage split per model;
-12. hold the hash-grid forward (G1) against its plain version on the REST
-    bucket of that frame and on the train step's 16,384 points (checked
-    right after the capture, before the timed train steps), twice
-    (bit-equal);
+12. hold the hash-grid forward (G1) against its plain version on each of
+    its three uses: the first REST frame's points, the REST bucket of the
+    two-model frame and the train step's 16,384 points (checked right
+    after the capture, before the timed train steps), twice (bit-equal);
+    hold its backward (G1b) against its plain version on the train step's
+    captured backward inputs (keys, weights and g_l bit-equal, the input
+    gradient within G1B_RTOL, bit-equal on a repeat), and count the
+    hash-grid backward's device launches per step on the plain path and
+    on G1b (torch.profiler);
 13. drive the row-gather probe (K4) at its shape, count set to 0 just
-    before, and hold K4 against its plain version (bit-equal repeat).
+    before, and hold K4 against its plain version (bit-equal, and on a
+    repeat).
 
 The perceptual loss runs on seeded random VGG19 weights (the repository
 holds no converted ImageNet weights) behind the JAX package's opt-in gate,
@@ -57,7 +64,8 @@ and the run says so.
 It prints timings beside the card's name and power limit, a ``kernels``
 JSON line (launches on the timed passes, time, plain time, library time,
 bound, max error; K1 and K2 also the pairs their bounds count and the
-bound over every tested pair as ``tested_bound_ms``; K3 also per use),
+bound over every tested pair as ``tested_bound_ms``; K3 and G1 also per
+use; G1b also the backward's launches per step and the A/B of phase 9),
 and as its last line
 ``{"ok": true, "device": {...}}``.
 
@@ -73,6 +81,7 @@ import json
 import subprocess
 import sys
 import time
+from typing import Tuple
 
 import numpy as np
 
@@ -132,10 +141,14 @@ K3_RTOL = 1e-5
 STEP_LOSS_RTOL = 1e-4
 STEP_GRAD_RTOL = 1e-3
 # G1: per-corner terms equal the plain version's, only the order of the
-# sum over the 2^D corners differs; K4: bf16 -> float32 is exact, the 8
-# channel adds run in another order; both relative to the largest output
+# sum over the 2^D corners differs: relative to the largest output (K4 is
+# held bit-equal: bf16 -> float32 is exact and both add in channel order)
 G1_RTOL = 1e-6
-K4_RTOL = 1e-6
+# G1b: keys, weights and g_l equal the plain version's bit for bit, and so
+# does each corner's term of the input gradient; its sums over channels,
+# 2^D corners and L levels run in another order: relative to the largest
+# input gradient
+G1B_RTOL = 1e-5
 # the JAX package's two-model frame (bench.py:373-417)
 FRAME_BUDGETS = {"REST": 196608, "BLDG": 65536}
 TRAIN_POINTS = 16384  # the REST recipe's train_max_points
@@ -507,9 +520,11 @@ def phase_small_reference():
 
 
 def phase_frame(pipe, projections, centers, poses, style_lut=None,
-                what: str = "frame path", warmup=None):
-    """Warm-up pass (``warmup`` renders it when given), then a timed pass
-    with the kernels' launch counts set to 0 just before it."""
+                what: str = "frame path"):
+    """Warm-up pass (the first frame rendered once more, keeping its
+    hash-grid inputs, then every frame), then a timed pass with the
+    kernels' launch counts set to 0 just before it.  Returns the launches
+    and the first frame's G1 arguments."""
     import torch
 
     from gaussiancity_tpu_torch.ops import hash_grid
@@ -517,10 +532,12 @@ def phase_frame(pipe, projections, centers, poses, style_lut=None,
     from gaussiancity_tpu_torch.ops.rasterizer import blend
 
     t0 = time.perf_counter()
-    if warmup is None:
-        warmup = lambda: pipe.render_trajectory(projections, centers, poses,
-                                                style_lut=style_lut)
-    warmup()
+    g1_args = capture_calls(
+        [(hash_grid, "hash_encode_fwd")],
+        lambda: pipe.render_trajectory(projections, centers, poses[:1],
+                                       style_lut=style_lut))["hash_encode_fwd"]
+    check(len(g1_args) == 1, f"the {what} must call the hash grid once")
+    pipe.render_trajectory(projections, centers, poses, style_lut=style_lut)
     log(f"{what} warm-up: {time.perf_counter() - t0:.2f} s")
     pipe.stage_ms.clear()
     pipe.frame_stats.clear()
@@ -561,7 +578,7 @@ def phase_frame(pipe, projections, centers, poses, style_lut=None,
     log(f"launches on the timed pass: {launches}")
     for name, count in launches.items():
         check(count >= n, f"kernel {name} was not launched on every frame")
-    return launches
+    return launches, g1_args[0]
 
 
 def phase_profile(pipe, projections, centers, poses, style_lut=None):
@@ -663,14 +680,18 @@ def capture_calls(targets, fn) -> dict:
 
 def capture_step_inputs(trainer, batch):
     """One train step, keeping the arguments of its K2 call, of its two K3
-    calls (the hash-grid and the per-Gaussian use) and of its G1 call."""
+    calls (the hash-grid and the per-Gaussian use), of its G1 call and of
+    its G1b call."""
     from gaussiancity_tpu_torch.ops import hash_grid, hash_grid_bwd
     from gaussiancity_tpu_torch.ops.rasterizer import blend
 
     captured = capture_calls(
         [(blend, "blend_backward"), (hash_grid_bwd, "segment_sum_sorted"),
-         (hash_grid, "hash_encode_fwd")],
+         (hash_grid, "hash_encode_fwd"), (hash_grid, "hash_encode_bwd")],
         lambda: trainer.train_step(batch))
+    check(len(captured["hash_encode_fwd"]) == 1
+          and len(captured["hash_encode_bwd"]) == 1,
+          "a train step must call G1 and G1b once each")
     captured["blend_bwd"] = captured.pop("blend_backward")[-1]
     captured["segment_sum"] = captured.pop("segment_sum_sorted")
     return captured
@@ -921,19 +942,8 @@ def two_model_pipeline(cfg, device):
 def phase_two_model_frame(pipe, projections, centers, poses, lut):
     """The two-model frame: warm-up pass (keeping the first frame's
     hash-grid inputs), timed pass, BLDG buckets non-empty."""
-    from gaussiancity_tpu_torch.ops import hash_grid
-
-    captured = {}
-
-    def warmup():
-        captured.update(capture_calls(
-            [(hash_grid, "hash_encode_fwd")],
-            lambda: pipe.render_trajectory(projections, centers, poses[:1],
-                                           style_lut=lut)))
-        pipe.render_trajectory(projections, centers, poses, style_lut=lut)
-
-    launches = phase_frame(pipe, projections, centers, poses, lut,
-                           what="two-model frame", warmup=warmup)
+    launches, g1_args = phase_frame(pipe, projections, centers, poses, lut,
+                                    what="two-model frame")
     sizes = [(st["n_REST"], st["n_BLDG"]) for st in pipe.frame_stats]
     log(f"two-model buckets (REST, BLDG) per frame: {sizes}")
     for i, (_, n_bldg) in enumerate(sizes):
@@ -942,9 +952,7 @@ def phase_two_model_frame(pipe, projections, centers, poses, lut):
            if len(ms) == len(poses)}
     log("two-model frame stage medians (ms): " + json.dumps(
         {k: round(v, 2) for k, v in med.items()}))
-    check(len(captured["hash_encode_fwd"]) == 1,
-          "the two-model frame must call the hash grid once")
-    return launches, captured["hash_encode_fwd"][0]
+    return launches, g1_args
 
 
 def phase_g1(use: str, args) -> dict:
@@ -987,26 +995,138 @@ def phase_g1(use: str, args) -> dict:
         f"({N * L * (1 << D) * row_bytes} B at one sector each)")
     log(f"G1 {use}: {ms:.4f} ms, plain {plain_ms:.3f} ms; bound: {n_bytes} B"
         f" -> {t_bytes:.5f} ms, {n_ops} ops -> {t_ops:.5f} ms")
-    return dict(ms=ms, plain_ms=plain_ms, err=err, t_bytes=t_bytes,
-                t_ops=t_ops)
+    return dict(N=N, ms=ms, plain_ms=plain_ms, err=err, t_bytes=t_bytes,
+                t_ops=t_ops, rows=n_rows)
 
 
-def g1_entry(results) -> dict:
-    """G1's line: its uses summed (ms, plain, bound), the worst error."""
-    tot = {k: sum(r[k] for r in results)
+def g1_entry(results: dict) -> dict:
+    """G1's line: its uses summed (ms, plain, bound), the worst error,
+    and each use under "uses" (its launches are filled in by ``main``)."""
+    tot = {k: sum(r[k] for r in results.values())
            for k in ("ms", "plain_ms", "t_bytes", "t_ops")}
-    log("G1 line: the frame's REST bucket and the train step summed (ms, "
-        "plain, bound)")
+    uses = {}
+    for use, r in results.items():
+        uses[use] = {"N": r["N"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                     "bound_ms": max(r["t_bytes"], r["t_ops"]),
+                     "bound_by": ("bytes" if r["t_bytes"] >= r["t_ops"]
+                                  else "operations"),
+                     "max_abs_err": r["err"], "distinct_rows": r["rows"]}
+    log("G1 line: its three uses summed (ms, plain, bound), each use under "
+        "\"uses\"")
     return {"name": "hash_encode_fwd", "route": "cuda",
             "source": "gaussiancity_tpu_torch/csrc/hash_encode_fwd.cu",
             "replaces": "gaussiancity_tpu/ops/hash_grid.py:229 "
                         "(_hash_encode_fwd, an XLA gather; no Pallas kernel)",
-            "max_abs_err": max(r["err"] for r in results), "ms": tot["ms"],
-            "plain_ms": tot["plain_ms"],
+            "max_abs_err": max(r["err"] for r in results.values()),
+            "ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": max(tot["t_bytes"], tot["t_ops"]),
             "bound_by": ("bytes" if tot["t_bytes"] >= tot["t_ops"]
                          else "operations"),
-            "library_ms": None}
+            "library_ms": None, "uses": uses}
+
+
+def phase_g1b(args) -> dict:
+    """G1b against its plain version on the train step's captured
+    backward inputs, twice (bit-equal); its time, bound and plain time."""
+    import torch
+
+    from gaussiancity_tpu_torch.ops import hash_grid
+
+    inputs, emb, g = args[0], args[1], args[2]
+    N, D = inputs.shape
+    L, R_max, C = emb.shape
+    need_emb, need_x = args[8], args[9]
+    log(f"G1b inputs: N={N} D={D} L={L} R_max={R_max} C={C}; embedding "
+        f"gradient {need_emb}, input gradient {need_x}")
+    check(need_emb and need_x and (N, D, L, C) == (TRAIN_POINTS, 5, 16, 8),
+          "G1b must run at the train step's shape, both gradients wanted")
+    got = hash_grid.hash_encode_bwd(*args)
+    again = hash_grid.hash_encode_bwd(*args)
+    want = hash_grid.hash_encode_bwd_plain(*args)
+    torch.cuda.synchronize()
+    names = ("keys", "weights", "g_l")
+    equal = {n: torch.equal(a, b) for n, a, b in zip(names, got, want)}
+    repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+    err = float((got[3] - want[3]).abs().max())
+    scale = float(want[3].abs().max())
+    log(f"G1b vs plain: bit-equal {equal}; d_inputs max|d| {err:.3e} "
+        f"(max|d_inputs| {scale:.3e}, {err / scale:.3e} of it); repeat "
+        f"bit-equal {repeat}")
+    check(all(equal.values()), "G1b keys, weights or g_l differ from the "
+          "plain version")
+    check(repeat, "G1b differs between runs")
+    check(scale > 0 and err <= G1B_RTOL * scale,
+          f"G1b d_inputs differ from the plain version by more than "
+          f"{G1B_RTOL} of the largest")
+    ms = cuda_time_ms(lambda: hash_grid.hash_encode_bwd(*args))
+    plain_ms = cuda_time_ms(lambda: hash_grid.hash_encode_bwd_plain(*args),
+                            iters=5, warmup=1)
+    # bytes: the inputs, g, each distinct corner row once (whole sectors),
+    # the keys, weights and g_l written, d_inputs written; operations per
+    # (point, level, corner): the weight and row (~10 per input), the dot
+    # with g (2 per channel), the chain (D + 1 per input)
+    n_rows = sum(int(torch.unique(got[0][lvl]).numel()) for lvl in range(L))
+    row_bytes = -(-C * 4 // 32) * 32
+    n_bytes = (N * D * 4 + N * L * C * 4 + n_rows * row_bytes
+               + L * (N << D) * 8 + L * N * C * 4 + N * D * 4)
+    n_ops = N * L * (1 << D) * (10 * D + 2 * C + D * (D + 1))
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_FLOP_PER_S * 1e3
+    log(f"G1b: {ms:.4f} ms (the kernel and its one sum over the levels), "
+        f"plain {plain_ms:.3f} ms; bound: {n_bytes} B ({n_rows} distinct "
+        f"rows) -> {t_bytes:.5f} ms, {n_ops} ops -> {t_ops:.5f} ms")
+    return {"name": "hash_encode_bwd", "route": "cuda",
+            "source": "gaussiancity_tpu_torch/csrc/hash_encode_bwd.cu",
+            "replaces": "gaussiancity_tpu/ops/hash_grid.py:248 "
+                        "(_hash_encode_bwd, XLA; its segment sum is K3)",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "distinct_rows": n_rows}
+
+
+def device_launches(fn) -> Tuple[int, dict]:
+    """Device operations (kernels, copies, fills) that one call of ``fn``
+    issues, counted by torch.profiler: the total and the count by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            counts[e.key] = counts.get(e.key, 0) + e.count
+    return sum(counts.values()), counts
+
+
+def phase_bwd_launches(args) -> dict:
+    """The hash-grid backward's device launches for one train step's
+    call: the plain path (the torch backward the port ran before G1b)
+    and the kernel path, each with the embedding gradient's sort, payload
+    and K3 (``hash_grad_embeddings``)."""
+    from gaussiancity_tpu_torch.ops import hash_grid, hash_grid_bwd
+
+    R_max = args[1].shape[1]
+
+    def backward(fn):
+        keys, w, g_l, _ = fn(*args)
+        hash_grid_bwd.hash_grad_embeddings(keys, w, g_l, R_max)
+
+    before, _ = device_launches(
+        lambda: backward(hash_grid.hash_encode_bwd_plain))
+    after, by_name = device_launches(
+        lambda: backward(hash_grid.hash_encode_bwd))
+    log(f"hash-grid backward device launches per step: plain path "
+        f"{before}, G1b path {after}")
+    for name, count in sorted(by_name.items(), key=lambda kv: -kv[1]):
+        log(f"  {count:4d}x {name[:110]}")
+    check(after < before, "G1b did not cut the backward's launches")
+    return {"plain_path": before, "kernel_path": after}
 
 
 def phase_k4(device) -> dict:
@@ -1028,12 +1148,12 @@ def phase_k4(device) -> dict:
     scale = float(want.abs().max())
     log(f"K4 probe: table {tuple(table.shape)} {table.dtype}, idx "
         f"{tuple(idx.shape)}; vs plain max|d| {err:.3e} (max|out| "
-        f"{scale:.3e}); repeat bit-equal {torch.equal(got, again)}; "
-        f"launches on the probe's timed drive {launches}")
+        f"{scale:.3e}), bit-equal {torch.equal(got, want)}; repeat "
+        f"bit-equal {torch.equal(got, again)}; launches on the probe's "
+        f"timed drive {launches}")
     check(torch.equal(got, again), "K4 differs between runs")
-    check(scale > 0 and err <= K4_RTOL * scale,
-          f"K4 differs from the plain version by more than {K4_RTOL} of its "
-          "largest output")
+    check(scale > 0 and torch.equal(got, want),
+          "K4 is not bit-equal to its plain version")
     check(launches > 0, "the probe did not launch K4")
     plain_ms = cuda_time_ms(lambda: gr.gather_rowsum_plain(table, idx))
     # bytes: the distinct rows the indices name (16 bytes each), the
@@ -1045,13 +1165,34 @@ def phase_k4(device) -> dict:
     t_ops = M * 15 / FP32_FLOP_PER_S * 1e3
     log(f"K4: {ms:.5f} ms, plain {plain_ms:.4f} ms; bound: {n_bytes} B -> "
         f"{t_bytes:.5f} ms, {M * 15} ops -> {t_ops:.6f} ms")
+    # time against the index count (uniform indices, 1/8 to 8 times the
+    # probe's): a least-squares line gives the cost per index and per call,
+    # beside the launch-to-launch time of an empty kernel
+    rng = np.random.default_rng(1)
+    counts = [M * 2 ** k // 8 for k in range(7)]
+    inputs = [torch.as_tensor(rng.integers(0, table.shape[0], m, np.int32),
+                              device=idx.device) for m in counts]
+    # two passes, up and down the counts; the better time of each count
+    runs = {m: [] for m in counts}
+    for m, ix in list(zip(counts, inputs)) + list(zip(counts, inputs))[::-1]:
+        runs[m].append(cuda_time_ms(lambda: gr.gather_rowsum(table, ix)))
+    times = [min(runs[m]) for m in counts]
+    per_index, per_call = np.polyfit(counts, times, 1)
+    empty_ms = cuda_time_ms(lambda: torch.cuda._sleep(0))
+    log(f"K4 against the index count {counts}: {[round(t, 5) for t in times]}"
+        f" ms -> {per_index * 1e9:.3f} ps per index + {per_call:.5f} ms per "
+        f"call (an empty kernel back to back: {empty_ms:.5f} ms); the "
+        f"probe's rows as 32-byte sectors: {M * 32} B, "
+        f"{M * 32 / (per_index * M) / 1e9:.3f} TB/s from L2")
     return {"name": "gather_rowsum", "route": "cuda",
             "source": "gaussiancity_tpu_torch/csrc/gather_rowsum.cu",
             "replaces": "scripts/bench_gather3.py:64",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None, "launches": launches}
+            "library_ms": None, "launches": launches,
+            "ps_per_index": per_index * 1e9, "ms_per_call": per_call,
+            "empty_kernel_ms": empty_ms}
 
 
 def tiny_train_config():
@@ -1165,17 +1306,24 @@ def phase_train(trainer, batch, n_warm: int = 2, n_timed: int = 5):
 
     for use, name in k3_callers.items():
         setattr(hash_grid_bwd, name, observed(use))
-    blend.blend_forward.launches = 0
-    blend.blend_backward.launches = 0
-    k3.launches = 0
-    hash_grid.hash_encode_fwd.launches = 0
+    counters = {"blend_fwd": blend.blend_forward,
+                "blend_bwd": blend.blend_backward, "segment_sum": k3,
+                "hash_encode_fwd": hash_grid.hash_encode_fwd,
+                "hash_encode_bwd": hash_grid.hash_encode_bwd}
+    for fn in counters.values():
+        fn.launches = 0
     step_ms = []
     for i in range(n_timed):
         before = snapshot()
+        counts = {name: fn.launches for name, fn in counters.items()}
         t0 = time.perf_counter()
         m = trainer.train_step(batch)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_step = {name: fn.launches - counts[name]
+                    for name, fn in counters.items()}
+        check(min(per_step.values()) >= 1 and per_step["segment_sum"] >= 2,
+              f"train step {i}: a kernel was not launched ({per_step})")
         after = snapshot()
         m = {k: float(v) for k, v in m.items()}
         log(f"train step {i}: {step_ms[-1]:.2f} ms " + " ".join(
@@ -1193,16 +1341,9 @@ def phase_train(trainer, batch, n_warm: int = 2, n_timed: int = 5):
     trainer.time_stages = False
     for use, name in k3_callers.items():
         setattr(hash_grid_bwd, name, callers[use])
-    launches = {"blend_fwd": blend.blend_forward.launches,
-                "blend_bwd": blend.blend_backward.launches,
-                "segment_sum": k3.launches,
-                "hash_encode_fwd": hash_grid.hash_encode_fwd.launches}
-    log(f"launches on the {n_timed} timed steps: {launches}; K3 calls by "
-        f"use {k3_calls}")
-    check(launches["blend_fwd"] >= n_timed and launches["blend_bwd"]
-          >= n_timed and launches["segment_sum"] >= 2 * n_timed
-          and launches["hash_encode_fwd"] >= n_timed,
-          "K1, K2, K3 and G1 must be launched on every train step")
+    launches = {name: fn.launches for name, fn in counters.items()}
+    log(f"launches on the {n_timed} timed steps: {launches} (each kernel on"
+        f" every step, K3 twice); K3 calls by use {k3_calls}")
     check(sum(k3_calls.values()) == launches["segment_sum"]
           and min(k3_calls.values()) >= n_timed,
           "K3 must be launched for both of its uses on every train step")
@@ -1215,6 +1356,45 @@ def phase_train(trainer, batch, n_warm: int = 2, n_timed: int = 5):
         log(f"  stage {stage:10s} " + " ".join(f"{v:9.2f}" for v in ms)
             + f"   median {float(np.median(ms)):9.2f} ms")
     return launches
+
+
+def phase_train_backward_ab(trainer, batch, n: int = 3) -> dict:
+    """The step's backward stage with the hash-grid backward on G1b and,
+    for comparison in the same run, on its plain version (the torch
+    backward the port ran before G1b), in turns (plain, G1b, G1b, plain),
+    ``n`` steps each: the medians of the backward stage and the step."""
+    import torch
+
+    from gaussiancity_tpu_torch.ops import hash_grid
+
+    kernel = hash_grid.hash_encode_bwd
+    runs = {"plain": [], "G1b": []}
+    trainer.time_stages = True
+    try:
+        for which in ("plain", "G1b", "G1b", "plain"):
+            if which == "plain":
+                hash_grid.hash_encode_bwd = hash_grid.hash_encode_bwd_plain
+            trainer.stage_ms.clear()
+            steps = []
+            for _ in range(n):
+                t0 = time.perf_counter()
+                trainer.train_step(batch)
+                torch.cuda.synchronize()
+                steps.append((time.perf_counter() - t0) * 1e3)
+            hash_grid.hash_encode_bwd = kernel
+            runs[which].append((float(np.median(
+                trainer.stage_ms["backward"])), float(np.median(steps))))
+    finally:
+        hash_grid.hash_encode_bwd = kernel
+        trainer.time_stages = False
+    out = {}
+    for which, r in runs.items():
+        out[which] = {"backward_ms": [b for b, _ in r],
+                      "step_ms": [t for _, t in r]}
+        log(f"train step with the {which} hash-grid backward: backward "
+            f"stage medians {[round(b, 2) for b, _ in r]} ms, step medians "
+            f"{[round(t, 2) for _, t in r]} ms ({n} steps each)")
+    return out
 
 
 def phase_train_profile(trainer, batch, n: int = 3):
@@ -1279,10 +1459,13 @@ def main() -> int:
     pipe = city_pipeline(cfg, device)
     kernels.append(phase_raycast(pipe, projections, poses))
     phase_small_reference()
-    timed = [phase_frame(pipe, projections, centers, poses)]
+    launches, g1_args = phase_frame(pipe, projections, centers, poses,
+                                    what="REST frame")
+    timed = [launches]
     if profiling:
         phase_profile(pipe, projections, centers, poses)
-    del pipe
+    g1 = {"rest_frame": phase_g1("REST frame", g1_args)}
+    del pipe, g1_args
     torch.cuda.empty_cache()
 
     phase_small_two_model()
@@ -1293,7 +1476,8 @@ def main() -> int:
     timed.append(launches)
     if profiling:
         phase_profile(pipe, projections, centers, poses, lut)
-    g1 = [phase_g1("two-model frame, REST bucket", g1_frame_args)]
+    g1["two_model_frame_rest_bucket"] = phase_g1(
+        "two-model frame, REST bucket", g1_frame_args)
     del pipe, g1_frame_args
     torch.cuda.empty_cache()
 
@@ -1306,23 +1490,34 @@ def main() -> int:
                                  device=device)
     captured = capture_step_inputs(trainer, batch)
     kernels += phase_grad_kernels(captured)
-    g1.append(phase_g1("train step", captured["hash_encode_fwd"][0]))
+    g1["train_step"] = phase_g1("train step", captured["hash_encode_fwd"][0])
     kernels.append(g1_entry(g1))
-    del captured
+    g1b_args = captured["hash_encode_bwd"][0]
+    g1b = phase_g1b(g1b_args)
+    g1b["backward_launches_per_step"] = phase_bwd_launches(g1b_args)
+    kernels.append(g1b)
+    del captured, g1b_args
     phase_small_train(device)
     timed.append(phase_train(trainer, batch))
+    g1b["backward_ab"] = phase_train_backward_ab(trainer, batch)
     if profiling:
         phase_train_profile(trainer, batch)
     del trainer
     torch.cuda.empty_cache()
     kernels.append(phase_k4(device))
     # launches on the timed passes: REST frame, two-model frame, train
-    # steps; K4's are those of its probe's timed drive
+    # steps; K4's are those of its probe's timed drive; per use, K3's
+    # from the train steps and G1's from the pass of its use
+    g1_pass = {"rest_frame": 0, "two_model_frame_rest_bucket": 1,
+               "train_step": 2}
     for k in kernels:
         if "launches" not in k:
             k["launches"] = sum(t.get(k["name"], 0) for t in timed)
         for use, entry in k.get("uses", {}).items():
-            entry["launches"] = timed[-1]["segment_sum_by_use"][use]
+            if k["name"] == "segment_sum":
+                entry["launches"] = timed[-1]["segment_sum_by_use"][use]
+            else:
+                entry["launches"] = timed[g1_pass[use]][k["name"]]
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -25,7 +25,7 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 KERNELS = ("blend_fwd", "blend_bwd", "segment_sum", "raycast",
-           "hash_encode_fwd", "gather_rowsum")
+           "hash_encode_fwd", "hash_encode_bwd", "gather_rowsum")
 # -fmad=false: no fused multiply-adds, so the kernels round like their
 # plain PyTorch versions at the blend and DDA thresholds
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -54,6 +54,9 @@ _ARGTYPES = {
     # inputs, table, level params, N, D, L, R_max, C, bound, 2 * bound,
     # out, stream
     "hash_encode_fwd": [P, P, P, I, I, I, I, I, F, F, P, P],
+    # inputs, table, level params, g, N, D, L, R_max, C, bound, 2 * bound,
+    # keys, weights, g_l (or three nulls), part (or null), stream
+    "hash_encode_bwd": [P, P, P, P, I, I, I, I, I, F, F, P, P, P, P, P],
     # table, idx, R, M, out, stream
     "gather_rowsum": [P, P, I, LL, P, P],
 }

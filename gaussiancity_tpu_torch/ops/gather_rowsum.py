@@ -28,9 +28,14 @@ PROBE_ROWS, PROBE_CHANNELS, PROBE_QUERIES = 65536, 8, 524288
 
 def gather_rowsum_plain(table: torch.Tensor, idx: torch.Tensor
                         ) -> torch.Tensor:
-    """out[...] = sum_k float(table[clamp(idx[...]), k])."""
+    """out[...] = sum_k float(table[clamp(idx[...]), k]), the channels
+    added in order k = 0..7 as K4 adds them."""
     rows = idx.long().clamp(0, table.shape[0] - 1)
-    return table[rows].float().sum(dim=-1)
+    vals = table[rows].float()
+    out = vals[..., 0]
+    for k in range(1, vals.shape[-1]):
+        out = out + vals[..., k]
+    return out
 
 
 def gather_rowsum(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

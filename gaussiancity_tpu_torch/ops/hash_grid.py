@@ -18,7 +18,11 @@ convert one to one.  Semantics:
 The forward is kernel G1 (``csrc/hash_encode_fwd.cu``) on CUDA tensors
 and ``hash_encode_fwd_plain`` (one [2^D, N, C] gather per level) on CPU
 tensors.  The forward keeps no corner values: the backward recomputes the
-geometry and, when the inputs need a gradient, gathers the corners again.
+geometry and, when the inputs need a gradient, gathers the corners again,
+in kernel G1b (``csrc/hash_encode_bwd.cu``, ``hash_encode_bwd``) on CUDA
+tensors and in ``hash_encode_bwd_plain`` on CPU tensors; the embedding
+gradient is then the sorted segment sum (K3,
+``hash_grid_bwd.hash_grad_embeddings``).
 """
 
 from __future__ import annotations
@@ -246,14 +250,133 @@ def hash_encode_fwd(inputs: torch.Tensor, embeddings: torch.Tensor,
 hash_encode_fwd.launches = 0
 
 
+def hash_encode_bwd_plain(inputs: torch.Tensor, embeddings: torch.Tensor,
+                          g: torch.Tensor, n_levels: int,
+                          base_resolution: int, desired_resolution: int,
+                          log2_hashmap_size: int, bound: float = 1.0,
+                          need_embeddings: bool = True,
+                          need_inputs: bool = True):
+    """Plain version of G1b, the backward of ``hash_encode`` up to the
+    segment sum: the JAX package's ``_hash_encode_bwd``
+    (``hash_grid.py:248-300``) with the corner rows and weights recomputed
+    and the corner values gathered again, one level at a time.
+
+    inputs [N, D], embeddings [L, R_max, C], g [N, L * C] ->
+    (keys [L, 2^D, N] int32, weights [L, 2^D, N], g_l [L, N, C],
+    d_inputs [N, D]): K3's inputs (``hash_grid_bwd.hash_grad_embeddings``;
+    g_l is the gradient per level, 0 for out-of-bound points), None unless
+    ``need_embeddings``, and the input gradient, None unless
+    ``need_inputs``."""
+    D = inputs.shape[1]
+    idx, frac, w, oob, scales = _level_geometry(
+        inputs, D, n_levels, base_resolution, desired_resolution,
+        log2_hashmap_size, bound)
+    L, NC, N = w.shape
+    C = embeddings.shape[2]
+    gm = torch.where(oob[:, None], torch.zeros_like(g), g)
+    g_l = gm.reshape(N, L, C).transpose(0, 1).contiguous()  # [L, N, C]
+    d_inputs = None
+    if need_inputs:
+        # dw[l, c, n] = <value of corner c, g_l[l, n]>, one level's
+        # [2^D, N, C] corner values at a time
+        dw = torch.stack([
+            (embeddings[lvl][idx[lvl].long()] * g_l[lvl][None]).sum(-1)
+            for lvl in range(L)])  # [L, 2^D, N]
+        bits = corner_bits(D, g.device)
+        scales = torch.tensor(scales, dtype=frac.dtype, device=g.device)
+        d_x01 = []
+        for d in range(D):
+            prod = torch.ones_like(dw)
+            for d2 in range(D):
+                if d2 != d:
+                    f = frac[:, None, d2, :]
+                    prod = prod * torch.where(bits[None, :, d2, None] == 1,
+                                              f, 1.0 - f)
+            sign = torch.where(bits[:, d] == 1, 1.0, -1.0)[None, :, None]
+            dfrac = (dw * sign * prod).sum(dim=1)  # [L, N]
+            # pos = x01 * scale + 0.5, so d x01 = scale * d frac
+            d_x01.append((dfrac * scales[:, None]).sum(dim=0))
+        d_inputs = torch.stack(d_x01, dim=-1) / (2.0 * bound)
+        d_inputs = torch.where(oob[:, None], torch.zeros_like(d_inputs),
+                               d_inputs)
+    if not need_embeddings:
+        return None, None, None, d_inputs
+    return idx, w, g_l, d_inputs
+
+
+def hash_encode_bwd(inputs: torch.Tensor, embeddings: torch.Tensor,
+                    g: torch.Tensor, n_levels: int, base_resolution: int,
+                    desired_resolution: int, log2_hashmap_size: int,
+                    bound: float = 1.0, need_embeddings: bool = True,
+                    need_inputs: bool = True):
+    """The hash-grid backward up to the segment sum; inputs, outputs and
+    None-ness as ``hash_encode_bwd_plain``.  CUDA tensors go to kernel G1b
+    (one launch, then one ``sum`` over the levels for ``d_inputs``), CPU
+    tensors to the plain version."""
+    if not inputs.device == embeddings.device == g.device:
+        raise ValueError(f"inputs are on {inputs.device}, embeddings on "
+                         f"{embeddings.device}, g on {g.device}")
+    if any(t.dtype != torch.float32 for t in (inputs, embeddings, g)):
+        raise TypeError("inputs, embeddings and g must be float32, got "
+                        f"{inputs.dtype}, {embeddings.dtype} and {g.dtype}")
+    N, D = inputs.shape
+    L, R_max, C = embeddings.shape
+    if L != n_levels or tuple(g.shape) != (N, L * C):
+        raise ValueError(f"inputs [N, D], embeddings [{n_levels}, R_max, C]"
+                         f" and g [N, {n_levels} * C] expected, got "
+                         f"{tuple(inputs.shape)}, {tuple(embeddings.shape)}"
+                         f" and {tuple(g.shape)}")
+    args = (n_levels, base_resolution, desired_resolution,
+            log2_hashmap_size, bound, need_embeddings, need_inputs)
+    if not inputs.is_cuda:
+        return hash_encode_bwd_plain(inputs, embeddings, g, *args)
+    if not 1 <= D <= 7 or not 1 <= C <= 16:
+        raise ValueError("kernel G1b takes 1..7 inputs and 1..16 channels")
+    if not all(t.is_contiguous() for t in (inputs, embeddings, g)):
+        raise ValueError("inputs, embeddings and g must be contiguous")
+    if C == 8 and (embeddings.data_ptr() % 16 or g.data_ptr() % 16):
+        raise ValueError("kernel G1b loads 8-channel rows as float4: the "
+                         "table and g must be 16-byte aligned")
+    if N >= 2 ** 31 or R_max >= 2 ** 31:
+        raise ValueError("kernel G1b counts points and rows in int32")
+    levels = level_table(D, n_levels, base_resolution, desired_resolution,
+                         log2_hashmap_size, inputs.device)
+    dev = inputs.device
+    keys = weights = g_l = part = d_inputs = None
+    if need_embeddings:
+        keys = torch.empty((L, 1 << D, N), dtype=torch.int32, device=dev)
+        weights = torch.empty((L, 1 << D, N), dtype=torch.float32,
+                              device=dev)
+        g_l = torch.empty((L, N, C), dtype=torch.float32, device=dev)
+    if need_inputs:
+        part = torch.empty((L, N, D), dtype=torch.float32, device=dev)
+    if N and (need_embeddings or need_inputs):
+        outs = [None if t is None else t.data_ptr()
+                for t in (keys, weights, g_l, part)]
+        _kernels.launch("hash_encode_bwd", inputs.data_ptr(),
+                        embeddings.data_ptr(), levels.data_ptr(),
+                        g.data_ptr(), N, D, n_levels, R_max, C, float(bound),
+                        float(np.float32(2.0 * bound)), *outs,
+                        _kernels.stream_handle(dev))
+        hash_encode_bwd.launches += 1
+    if need_inputs:
+        # the levels' contributions, each already over 2 * bound and 0 for
+        # out-of-bound points, summed in one deterministic reduction
+        d_inputs = part.sum(dim=0)
+    return keys, weights, g_l, d_inputs
+
+
+hash_encode_bwd.launches = 0
+
+
 class _HashEncode(torch.autograd.Function):
     """The JAX package's ``hash_encode`` custom VJP: the embedding
     gradient is a sorted segment sum (kernel K3 on the card,
     ``hash_grid_bwd.hash_grad_embeddings``), the input gradient the
     closed-form multilinear chain (``hash_grid.py:275-298``).  The forward
-    (G1) keeps only its inputs; the backward recomputes the corner rows
-    and weights, and gathers the corner values (one gather per level)
-    when the inputs need a gradient."""
+    (G1) keeps only its inputs; the backward (G1b, ``hash_encode_bwd``)
+    recomputes the corner rows and weights, and gathers the corner values
+    again when the inputs need a gradient."""
 
     @staticmethod
     def forward(ctx, inputs, embeddings, geometry_args, bound):
@@ -267,40 +390,15 @@ class _HashEncode(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         inputs, embeddings = ctx.saved_tensors
-        D = inputs.shape[1]
-        idx, frac, w, oob, scales = _level_geometry(
-            inputs, D, *ctx.geometry_args, ctx.bound)
-        L, NC, N = w.shape
-        C = g.shape[1] // L
-        gm = torch.where(oob[:, None], torch.zeros_like(g), g)
-        g_l = gm.reshape(N, L, C).transpose(0, 1).contiguous()  # [L, N, C]
-        d_emb = d_inputs = None
-        if ctx.needs_input_grad[1]:
+        need_inputs, need_embeddings = ctx.needs_input_grad[:2]
+        keys, weights, g_l, d_inputs = hash_encode_bwd(
+            inputs.detach().contiguous(), embeddings.detach(),
+            g.contiguous(), *ctx.geometry_args, ctx.bound, need_embeddings,
+            need_inputs)
+        d_emb = None
+        if need_embeddings:
             d_emb = hash_grid_bwd.hash_grad_embeddings(
-                idx, w, g_l, embeddings.shape[1])
-        if ctx.needs_input_grad[0]:
-            # dw[l, c, n] = <value of corner c, g_l[l, n]>, one level's
-            # [2^D, N, C] corner values at a time
-            dw = torch.stack([
-                (embeddings[lvl][idx[lvl].long()] * g_l[lvl][None]).sum(-1)
-                for lvl in range(L)])  # [L, 2^D, N]
-            bits = corner_bits(D, g.device)
-            scales = torch.tensor(scales, dtype=frac.dtype, device=g.device)
-            d_x01 = []
-            for d in range(D):
-                prod = torch.ones_like(dw)
-                for d2 in range(D):
-                    if d2 != d:
-                        f = frac[:, None, d2, :]
-                        prod = prod * torch.where(bits[None, :, d2, None] == 1,
-                                                  f, 1.0 - f)
-                sign = torch.where(bits[:, d] == 1, 1.0, -1.0)[None, :, None]
-                dfrac = (dw * sign * prod).sum(dim=1)  # [L, N]
-                # pos = x01 * scale + 0.5, so d x01 = scale * d frac
-                d_x01.append((dfrac * scales[:, None]).sum(dim=0))
-            d_inputs = torch.stack(d_x01, dim=-1) / (2.0 * ctx.bound)
-            d_inputs = torch.where(oob[:, None], torch.zeros_like(d_inputs),
-                                   d_inputs)
+                keys, weights, g_l, embeddings.shape[1])
         return d_inputs, d_emb, None, None
 
 

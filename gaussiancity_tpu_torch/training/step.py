@@ -68,8 +68,14 @@ class Trainer:
 
     def __init__(self, cfg: Config, device=None, seed: int = 0):
         self.cfg = cfg
-        self.device = resolve_device(device)
         ds, tr = cfg.dataset, cfg.train
+        if tr.compute_dtype != "float32":
+            # the JAX Trainer builds D and the perceptual loss in bf16 for
+            # "bfloat16" (training/step.py:127-141); the port does not yet
+            raise NotImplementedError(
+                "the PyTorch port's Trainer computes in float32 only, got "
+                f"train.compute_dtype={tr.compute_dtype!r}")
+        self.device = resolve_device(device)
         vgg_npz = check_vgg_weights(tr.perceptual_loss_factor,
                                     tr.allow_random_vgg)
         gen = torch.Generator().manual_seed(seed)

@@ -11,7 +11,8 @@ test_torch_rasterizer.py (K1, K2 and the per-Gaussian use of K3),
 test_torch_models.py (the hash-grid use of K3 and G1's plain version),
 test_torch_segment_sum.py (K3's module) and test_torch_visibility.py (V1
 and its occupancy tables).  K4 is the JAX package's gather probe
-and has no JAX counterpart on the CPU."""
+and has no JAX counterpart on the CPU.  G1b's plain version is held to
+the JAX custom VJP by test_torch_models.py."""
 
 import numpy as np
 import pytest
@@ -41,7 +42,10 @@ K3_RTOL = 1e-5
 # corner sum differs; K4 widens bf16 exactly and sums 8 channels in
 # another order: relative to the largest output
 G1_RTOL = 1e-6
-K4_RTOL = 1e-6
+# G1b: keys, weights and each corner's term equal the plain version's; the
+# sums over channels, 2^D corners and L levels run in another order:
+# relative to the largest input gradient
+G1B_RTOL = 1e-5
 
 
 @pytest.fixture
@@ -444,6 +448,9 @@ G1_CASES = {
     "xyz_dense_and_hashed_c2": (3, 4, 4, 64, 8, 2, 3001),
     "rest_5d_c8": (5, 16, 16, 512, 19, 8, 20000),
     "rest_5d_c8_small_table": (5, 3, 16, 64, 10, 8, 777),
+    # the REST grid (every level hashed, 2^19 rows) at one point more than
+    # the train step's: N is not a multiple of the 32-point block
+    "rest_5d_c8_all_hashed_ragged": (5, 16, 16, 512, 19, 8, 16385),
 }
 
 
@@ -453,6 +460,8 @@ def test_hash_encode_kernel_matches_plain(dev, case):
     _, _, _, hashed, _ = hash_grid.level_params(D, L, base, desired, log2)
     if case.startswith("xyz"):
         assert not hashed[0] and hashed[-1]
+    if "all_hashed" in case:
+        assert all(hashed) and N % 32
     shape = hash_grid.table_shape(D, L, base, desired, log2, C)
     rng = np.random.default_rng(6)
     emb = torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32))
@@ -482,6 +491,72 @@ def test_hash_encode_kernel_rejects_mixed_devices(dev):
                                   torch.zeros((2, 64, 2)), 2, 4, 16, 6)
 
 
+G1B_CASES = {
+    # D, L, base res, desired res, log2 rows, C, N
+    "xyz_dense_and_hashed_c2": (3, 4, 4, 64, 8, 2, 3001),
+    "rest_5d_c8_all_hashed_ragged": (5, 16, 16, 512, 19, 8, 16385),
+}
+
+
+@pytest.mark.parametrize("need_inputs", [True, False],
+                         ids=["with_dx", "without_dx"])
+@pytest.mark.parametrize("case", sorted(G1B_CASES))
+def test_hash_encode_bwd_kernel_matches_plain(dev, case, need_inputs):
+    D, L, base, desired, log2, C, N = G1B_CASES[case]
+    shape = hash_grid.table_shape(D, L, base, desired, log2, C)
+    rng = np.random.default_rng(8)
+    emb = torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32))
+    x = torch.from_numpy(rng.uniform(-1.05, 1.05, (N, D)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(N, L * C)).astype(np.float32))
+    args = (x.to(dev), emb.to(dev), g.to(dev), L, base, desired, log2)
+    n0 = hash_grid.hash_encode_bwd.launches
+    got = hash_grid.hash_encode_bwd(*args, need_inputs=need_inputs)
+    again = hash_grid.hash_encode_bwd(*args, need_inputs=need_inputs)
+    assert hash_grid.hash_encode_bwd.launches == n0 + 2
+    want = hash_grid.hash_encode_bwd_plain(*args, need_inputs=need_inputs)
+    torch.cuda.synchronize()
+    # keys, weights and the masked per-level gradient: bit-equal
+    for a, b, c in zip(got[:3], again[:3], want[:3]):
+        assert torch.equal(a, c) and torch.equal(a, b)
+    oob = (x.abs() > 1).any(-1).to(dev)
+    assert oob.any() and (got[2][:, oob] == 0).all()
+    if not need_inputs:
+        assert got[3] is None and want[3] is None
+        return
+    assert torch.equal(got[3], again[3])
+    scale = float(want[3].abs().max())
+    assert scale > 0.1
+    assert float((got[3] - want[3]).abs().max()) <= G1B_RTOL * scale
+    assert (got[3][oob] == 0).all()
+    # the input gradient alone writes no keys
+    only_dx = hash_grid.hash_encode_bwd(*args, need_embeddings=False)
+    assert only_dx[:3] == (None, None, None)
+    assert torch.equal(only_dx[3], got[3])
+
+
+def test_hash_encode_backward_through_autograd(dev):
+    """hash_encode's gradients on the card (G1b, then K3) against the CPU
+    (the plain versions)."""
+    D, L, base, desired, log2, C, N = 5, 4, 16, 64, 12, 8, 3001
+    shape = hash_grid.table_shape(D, L, base, desired, log2, C)
+    rng = np.random.default_rng(9)
+    emb = torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32))
+    x = torch.from_numpy(rng.uniform(-1.05, 1.05, (N, D)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(N, L * C)).astype(np.float32))
+    grads = {}
+    for where in (dev, torch.device("cpu")):
+        tx = x.to(where).requires_grad_(True)
+        te = emb.to(where).requires_grad_(True)
+        (hash_grid.hash_encode(tx, te, D, L, base, desired, log2)
+         * g.to(where)).sum().backward()
+        grads[where.type] = (tx.grad.cpu(), te.grad.cpu())
+    for got, want, rtol in zip(grads["cuda"], grads["cpu"],
+                               (G1B_RTOL, K3_RTOL)):
+        scale = float(want.abs().max())
+        assert scale > 0
+        assert float((got - want).abs().max()) <= rtol * scale
+
+
 def test_gather_rowsum_kernel_matches_plain(dev):
     table, idx = gr.probe_inputs(seed=3, device=dev)
     idx[0, :5] = torch.tensor([-3, 0, gr.PROBE_ROWS - 1, gr.PROBE_ROWS,
@@ -494,6 +569,26 @@ def test_gather_rowsum_kernel_matches_plain(dev):
     torch.cuda.synchronize()
     assert got.shape == idx.shape and got.dtype == torch.float32
     assert torch.equal(got, again)
-    scale = float(want.abs().max())
-    assert scale > 1
-    assert float((got - want).abs().max()) <= K4_RTOL * scale
+    assert float(want.abs().max()) > 1
+    # bf16 -> float32 is exact and both add the 8 channels in order
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["ragged", "unaligned"])
+def test_gather_rowsum_kernel_ragged(dev, case):
+    """An index count that is not a multiple of 4 (the last thread's
+    tail), and an index pointer off 16 bytes (scalar loads)."""
+    table, idx = gr.probe_inputs(seed=4, device=dev)
+    idx = idx.reshape(-1)
+    if case == "ragged":
+        idx = idx[:7 * 1001].reshape(7, 1001)
+    else:
+        idx = idx[1:4002]
+    assert idx.numel() % 4 and (case == "ragged") == (idx.data_ptr() % 16 == 0)
+    n0 = gr.gather_rowsum.launches
+    got = gr.gather_rowsum(table, idx)
+    assert gr.gather_rowsum.launches == n0 + 1
+    want = gr.gather_rowsum_plain(table, idx)
+    torch.cuda.synchronize()
+    assert got.shape == idx.shape
+    assert torch.equal(got, want)

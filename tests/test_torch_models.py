@@ -20,7 +20,7 @@ from gaussiancity_tpu_torch.config import Config, GaussianNetworkConfig
 from gaussiancity_tpu_torch.config import (PTv3Config, bldg_recipe,
                                            rest_recipe)
 from gaussiancity_tpu_torch.models.generator import Generator
-from gaussiancity_tpu_torch.ops import gather_rowsum, hash_grid
+from gaussiancity_tpu_torch.ops import gather_rowsum, hash_grid, hash_grid_bwd
 
 from test_torch_ptv3 import TINY as TINY_PTV3
 
@@ -98,6 +98,75 @@ class TestHashGrid:
         # out-of-bound points take no gradient
         oob = (np.abs(x) > 1).any(-1)
         assert oob.any() and (tx.grad.numpy()[oob] == 0).all()
+
+    @pytest.mark.parametrize("case", sorted(GRID_CASES))
+    def test_backward_plain_matches_jax_residuals(self, case):
+        """G1b's plain version against the JAX custom VJP's own pieces:
+        the corner rows and weights of its forward residuals (``idx_all``,
+        ``w``), the masked per-level gradient, ``_hash_encode_bwd``'s
+        input gradient, and the embedding gradient K3 makes of them.  The
+        REST shape has every level hashed, the xyz one dense and hashed
+        levels; some points lie out of bound."""
+        D, L, base, desired, log2 = GRID_CASES[case]
+        _, _, _, hashed, _ = hash_grid.level_params(D, L, base, desired,
+                                                    log2)
+        assert all(hashed) if D == 5 else (not hashed[0] and hashed[-1])
+        C = 4
+        shape = hash_grid.table_shape(D, L, base, desired, log2, C)
+        rng = np.random.default_rng(11)
+        emb = rng.uniform(-1, 1, shape).astype(np.float32)
+        x = rng.uniform(-1.05, 1.05, (300, D)).astype(np.float32)
+        g = rng.normal(size=(300, L * C)).astype(np.float32)
+        oob = (np.abs(x) > 1).any(-1)
+        assert oob.any()
+        _, res = jhash._hash_encode_fwd(jnp.asarray(x), jnp.asarray(emb), D,
+                                        L, base, desired, log2, 1.0)
+        want_dx, want_de = jhash._hash_encode_bwd(D, L, base, desired, log2,
+                                                  1.0, res, jnp.asarray(g))
+        idx_all, _, w_all = (np.asarray(r) for r in res[:3])
+        args = (torch.from_numpy(x), torch.from_numpy(emb),
+                torch.from_numpy(g), L, base, desired, log2)
+        keys, w, g_l, d_inputs = hash_grid.hash_encode_bwd(*args)
+        # the same float32 geometry: rows exact, weights to an ulp or two
+        # (XLA may fuse x01 * scale + 0.5)
+        np.testing.assert_array_equal(keys.numpy(), idx_all)
+        np.testing.assert_allclose(w.numpy(), w_all, rtol=0, atol=1e-6)
+        want_gl = np.where(oob[:, None], 0.0, g).reshape(300, L, C)
+        np.testing.assert_array_equal(g_l.numpy(), want_gl.transpose(1, 0, 2))
+        # the input gradient sums 2^D corner terms per level, scaled by
+        # the level's resolution: the gradient tests' tolerance
+        want_dx = np.asarray(want_dx)
+        assert np.abs(want_dx).max() > 0.1
+        np.testing.assert_allclose(d_inputs.numpy(), want_dx, atol=ATOL * 10,
+                                   rtol=RTOL)
+        assert (d_inputs.numpy()[oob] == 0).all()
+        d_emb = hash_grid_bwd.hash_grad_embeddings(keys, w, g_l, shape[1])
+        np.testing.assert_allclose(d_emb.numpy(), np.asarray(want_de),
+                                   atol=ATOL, rtol=RTOL)
+        # only what is asked for
+        none_x = hash_grid.hash_encode_bwd(*args, need_inputs=False)
+        assert none_x[3] is None and torch.equal(none_x[0], keys)
+        none_e = hash_grid.hash_encode_bwd(*args, need_embeddings=False)
+        assert none_e[:3] == (None, None, None)
+        assert torch.equal(none_e[3], d_inputs)
+        assert hash_grid.hash_encode_bwd.launches == 0  # CPU: plain
+
+    def test_backward_rejects_bad_inputs(self):
+        """G1b's wrapper checks devices, dtypes and shapes before it
+        picks a path."""
+        D, L, base, desired, log2 = GRID_CASES["rest_5d"]
+        shape = hash_grid.table_shape(D, L, base, desired, log2, 2)
+        x, emb = torch.zeros((4, D)), torch.zeros(shape)
+        g = torch.zeros((4, L * 2))
+        args = (L, base, desired, log2)
+        with pytest.raises(ValueError, match="g"):
+            hash_grid.hash_encode_bwd(x, emb, g[:, :-1], *args)
+        with pytest.raises(ValueError, match="embeddings"):
+            hash_grid.hash_encode_bwd(x, emb, g, L + 1, *args[1:])
+        with pytest.raises(TypeError, match="float32"):
+            hash_grid.hash_encode_bwd(x, emb, g.double(), *args)
+        with pytest.raises(ValueError, match="g on meta"):
+            hash_grid.hash_encode_bwd(x, emb, g.to("meta"), *args)
 
     def test_hash_wraps_like_uint32(self):
         # products of large lattice coordinates and the primes overflow

@@ -229,6 +229,17 @@ class TestTrainStep:
                     assert torch.equal(p.detach(), d0[name]), name
                     assert p.grad.abs().max() > 0, name
 
+    def test_bfloat16_compute_raises(self):
+        """The JAX Trainer computes D and the perceptual loss in bf16 for
+        train.compute_dtype "bfloat16"; the port computes in float32 only
+        and must say so instead of running float32 silently."""
+        cfg = Config.from_dict(tiny_config().to_dict())
+        bf16 = cfg.replace(train=cfg.train.replace(compute_dtype="bfloat16"))
+        with pytest.raises(NotImplementedError, match="compute_dtype"):
+            Trainer(bf16, device="cpu")
+        assert Trainer(cfg, device="cpu").cfg.train.compute_dtype == \
+            "float32"
+
     def test_checkpoint_roundtrip(self, tmp_path):
         _, _, _, t, tbatch = _trainer_pair()
         t.train_step(tbatch)
