@@ -53,7 +53,22 @@ Phases, each of which fails the run if it fails:
     gradient within G1B_RTOL, bit-equal on a repeat), and count the
     hash-grid backward's device launches per step on the plain path and
     on G1b (torch.profiler);
-13. drive the row-gather probe (K4) at its shape, count set to 0 just
+13. take two tiny BLDG train steps (PTv3 in training mode, drop path 0,
+    one z table) on the card and on the CPU from the same seeded weights
+    and compare losses, gradients and PTv3's running statistics;
+14. train the BLDG generator at the BLDG recipe's widths through
+    ``Trainer.train_step`` on 16,384 shell points of the synthetic city's
+    largest building: one step whose K1, K2 and K3 (per Gaussian) inputs
+    are kept and held against the plain versions, 2 warm-up steps, then 5
+    timed steps with the launch counts set to 0 just before them: finite
+    losses, changed weights and running statistics, ``RasterGradTruncated``
+    and ``PTv3PoolOverflow`` 0, K1, K2 and K3 on every step, the stage
+    split with PTv3 apart, the peak memory; then one eval step that leaves
+    the running statistics as they are;
+15. run the training loop ``train()`` on the card over the synthetic
+    dataset with a tiny BLDG config: one epoch with validation and a
+    checkpoint, then a resume from it for the second; steps per second;
+16. drive the row-gather probe (K4) at its shape, count set to 0 just
     before, and hold K4 against its plain version (bit-equal, and on a
     repeat).
 
@@ -65,7 +80,9 @@ It prints timings beside the card's name and power limit, a ``kernels``
 JSON line (launches on the timed passes, time, plain time, library time,
 bound, max error; K1 and K2 also the pairs their bounds count and the
 bound over every tested pair as ``tested_bound_ms``; K3 and G1 also per
-use; G1b also the backward's launches per step and the A/B of phase 9),
+use; K1, K2 and K3 also their use on the BLDG step, under "uses" as
+"bldg_step"; G1b also the backward's launches per step and the A/B of
+phase 9),
 and as its last line
 ``{"ok": true, "device": {...}}``.
 
@@ -289,27 +306,48 @@ def phase_blend(cfg, device) -> dict:
         alpha_min=rc.alpha_min, alpha_max=rc.alpha_max,
         t_eps=rc.transmittance_eps, ref_gate=True)
     idx, counts = bins.gauss_index, bins.counts
-    T, K = idx.shape
     bg = torch.tensor([0.1, 0.2, 0.3], device=device)
-    args = (attrs, idx, counts, (0.0, 0.0), bg, H, W, consts)
-    log(f"K1 inputs: T={T} K={K} N={attrs.shape[0]} slots={int(counts.sum())}"
-        f" max count={int(counts.max())} truncated={int(bins.n_truncated)}")
-    check(T == 510 and K == 2048, "K1 must run at the frame shape")
+    log(f"K1 frame-scene inputs: truncated={int(bins.n_truncated)}")
+    check(tuple(idx.shape) == (510, 2048), "K1 must run at the frame shape")
+    entry = k1_measure("frame scene",
+                       (attrs, idx, counts, (0.0, 0.0), bg, H, W, consts))
+    entry.pop("touched_share")
+    return {"name": "blend_fwd", "route": "cuda",
+            "source": "gaussiancity_tpu_torch/csrc/blend_fwd.cu",
+            "replaces": "gaussiancity_tpu/ops/rasterizer/blend_pallas.py:239",
+            **entry}
+
+
+def k1_measure(use: str, args) -> dict:
+    """K1 against its plain version on ``args`` (those of one
+    ``blend.blend_forward`` call): agreement, time, plain time and bound;
+    also the share of pixels that at least one slot reaches."""
+    import torch
+
+    from gaussiancity_tpu_torch.ops.rasterizer import blend
+
+    attrs, idx, counts, origin, _, H, W, consts = args
+    T, K = idx.shape
+    log(f"K1 {use} inputs: T={T} K={K} N={attrs.shape[0]} "
+        f"slots={int(counts.sum())} max count={int(counts.max())}")
     got = blend.blend_forward(*args)
     want = blend.blend_forward_plain(*args)
     torch.cuda.synchronize()
     err_img = float((got[0] - want[0]).abs().max())
     err_T = float((got[1] - want[1]).abs().max())
     share = float((got[2] == want[2]).float().mean())
-    log(f"K1 vs plain: image max|d|={err_img:.3e} final_T max|d|={err_T:.3e}"
-        f" n_contrib equal {share:.6f}")
+    touched = float((want[2] > 0).float().mean())
+    log(f"K1 {use} vs plain: image max|d|={err_img:.3e} final_T max|d|="
+        f"{err_T:.3e} n_contrib equal {share:.6f}; pixels reached "
+        f"{touched:.4f}")
     check(err_img <= K1_TOL and err_T <= K1_TOL,
-          f"K1 image/final_T differ from the plain version by more than "
-          f"{K1_TOL}")
-    check(share >= MATCH_SHARE, "K1 n_contrib differs from the plain version")
-    check(float(want[0].std()) > 0.01, "K1 test scene renders nothing")
-    log("K1 bit-equal to the plain version (image, final_T, n_contrib): "
-        f"{[torch.equal(a, b) for a, b in zip(got, want[:3])]}")
+          f"K1 ({use}) image/final_T differ from the plain version by more "
+          f"than {K1_TOL}")
+    check(share >= MATCH_SHARE,
+          f"K1 ({use}) n_contrib differs from the plain version")
+    check(float(want[0].std()) > 0.01, f"K1 ({use}) renders nothing")
+    log(f"K1 {use} bit-equal to the plain version (image, final_T, "
+        f"n_contrib): {[torch.equal(a, b) for a, b in zip(got, want[:3])]}")
     ms = cuda_time_ms(lambda: blend.blend_forward(*args))
     plain_ms = cuda_time_ms(lambda: blend.blend_forward_plain(*args),
                             iters=2, warmup=1)
@@ -318,39 +356,38 @@ def phase_blend(cfg, device) -> dict:
     # before the pixel saturates where the 16x16 gate holds, the blend of
     # the eligible ones among them, and one cull test per (sub-tile, slot)
     n_slots = int(counts.sum())
-    n_gauss = int(torch.unique(idx[bins.kmask]).numel())
+    kmask = torch.arange(K, device=idx.device)[None, :] < counts[:, None]
+    n_gauss = int(torch.unique(idx[kmask]).numel())
     n_bytes = (n_gauss * attrs.shape[1] * 4 + n_slots * 4 + T * 4
                + H * W * (3 + 1 + 1) * 4)
     n_eval = int(want[3].sum())
-    work = blend.blend_work(attrs, idx, counts, want[3], (0.0, 0.0), consts)
+    work = blend.blend_work(attrs, idx, counts, want[3], origin, consts)
     # a warp (8 x 4 pixels) runs until its last pixel saturates: its
     # slots over its mean pixel's, on this scene
     per_px = blend._to_tiles(want[3], consts, T).float()
-    per_warp = per_px.reshape(T, rc.tile_h // 4, 4, rc.tile_w // 8, 8)
+    per_warp = per_px.reshape(T, consts.tile_h // 4, 4, consts.tile_w // 8,
+                              8)
     overshoot = float(per_warp.amax(dim=(2, 4)).sum()) * 32 / n_eval
-    log(f"K1 saturation: a warp of 8x4 pixels tests {overshoot:.4f} x its "
-        "mean pixel's slots")
+    log(f"K1 {use} saturation: a warp of 8x4 pixels tests {overshoot:.4f} "
+        "x its mean pixel's slots")
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = (work.pairs * BLEND_FLOP_PER_GATED
              + work.eligible * BLEND_FLOP_PER_ELIGIBLE
              + work.sub_tile_tests * BLEND_CULL_OPS) / FP32_FLOP_PER_S * 1e3
     t_tested = n_eval * BLEND_FLOP_PER_EVAL / FP32_FLOP_PER_S * 1e3
-    log(f"K1: {ms:.4f} ms, plain {plain_ms:.2f} ms; bound: {n_bytes} B -> "
-        f"{t_bytes:.5f} ms, {work.pairs} gated pairs ({work.eligible} "
+    log(f"K1 {use}: {ms:.4f} ms, plain {plain_ms:.2f} ms; bound: {n_bytes} B"
+        f" -> {t_bytes:.5f} ms, {work.pairs} gated pairs ({work.eligible} "
         f"eligible) and {work.sub_tile_tests} sub-tile tests -> "
         f"{t_ops:.5f} ms; every tested pair ({n_eval}) -> {t_tested:.5f} ms"
         f" (tested_bound_ms)")
-    return {"name": "blend_fwd", "route": "cuda",
-            "source": "gaussiancity_tpu_torch/csrc/blend_fwd.cu",
-            "replaces": "gaussiancity_tpu/ops/rasterizer/blend_pallas.py:239",
-            "max_abs_err": max(err_img, err_T), "ms": ms,
+    return {"max_abs_err": max(err_img, err_T), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None, "gated_pairs": work.pairs,
             "eligible_pairs": work.eligible,
             "sub_tile_tests": work.sub_tile_tests, "tested_pairs": n_eval,
             "tested_bound_ms": max(t_bytes, t_tested),
-            "warp_overshoot": overshoot}
+            "warp_overshoot": overshoot, "touched_share": touched}
 
 
 def city_pipeline(cfg, device):
@@ -698,18 +735,56 @@ def capture_step_inputs(trainer, batch):
 
 
 def phase_grad_kernels(captured):
-    """K2 and K3 against their plain versions on one train step's inputs."""
+    """K2 and K3 against their plain versions on one REST train step's
+    inputs (K3 on both of its uses)."""
+    k2 = {"name": "blend_bwd", "route": "cuda",
+          "source": "gaussiancity_tpu_torch/csrc/blend_bwd.cu",
+          "replaces": "gaussiancity_tpu/ops/rasterizer/blend_pallas.py:350",
+          **k2_measure("REST step", captured["blend_bwd"])}
+    uses = {}
+    for keys, rows, n_rows in captured["segment_sum"]:
+        use = "hash_grid" if rows.shape[0] > 1 else "per_gaussian"
+        uses[use] = (keys, rows, n_rows)
+    check(sorted(uses) == ["hash_grid", "per_gaussian"],
+          "the train step must call K3 for both of its uses")
+    per_use = {use: k3_measure(use, *args)
+               for use, args in sorted(uses.items())}
+    k3 = {"name": "segment_sum", "route": "cuda",
+          "source": "gaussiancity_tpu_torch/csrc/segment_sum.cu",
+          "replaces": "gaussiancity_tpu/ops/hash_grid_bwd.py:57",
+          **sum_uses(per_use), "uses": per_use}
+    for u in per_use.values():
+        del u["t_bytes"], u["t_ops"]
+    log("K3 line: both uses of one REST step summed (ms, plain, library, "
+        "bound), and each use under \"uses\"")
+    return [k2, k3]
+
+
+def sum_uses(per_use: dict) -> dict:
+    """One kernel's uses summed: ms, plain and library ms and the two
+    bounds (the larger is ``bound_ms``); the worst error."""
+    tot = {k: sum(u[k] for u in per_use.values())
+           for k in ("ms", "plain_ms", "library_ms", "t_bytes", "t_ops")}
+    return {"max_abs_err": max(u["max_abs_err"] for u in per_use.values()),
+            "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+            "bound_ms": max(tot["t_bytes"], tot["t_ops"]),
+            "bound_by": ("bytes" if tot["t_bytes"] >= tot["t_ops"]
+                         else "operations"),
+            "library_ms": tot["library_ms"]}
+
+
+def k2_measure(use: str, args) -> dict:
+    """K2 against its plain version on one train step's captured inputs:
+    agreement on the live rows, a repeat, time, plain time and bound."""
     import torch
 
-    from gaussiancity_tpu_torch.ops import hash_grid_bwd
     from gaussiancity_tpu_torch.ops.rasterizer import blend
 
-    args = captured["blend_bwd"]
     attrs, idx, k_hi, origin, _, _, final_T, _, consts = args
     T, K = idx.shape
     H, W = final_T.shape
-    log(f"K2 inputs: T={T} K={K} N={attrs.shape[0]} image {H}x{W} origin "
-        f"{origin} slots to replay {int(k_hi.sum())} max k_hi "
+    log(f"K2 {use} inputs: T={T} K={K} N={attrs.shape[0]} image {H}x{W} "
+        f"origin {origin} slots to replay {int(k_hi.sum())} max k_hi "
         f"{int(k_hi.max())}")
     check(T == 280 and K == 1024 and (H, W) == (448, 640),
           "K2 must run at the train step's shape")
@@ -722,14 +797,15 @@ def phase_grad_kernels(captured):
     scale = want.abs().amax(dim=0)
     err = (got - want).abs()
     rel = float((err / scale.clamp(min=1e-30)).max())
-    log(f"K2 vs plain: max|d| {float(err.max()):.3e}, largest |d| / column "
-        f"scale {rel:.3e} (column scales {[f'{v:.3e}' for v in scale]}); "
-        f"repeat bit-equal {torch.equal(got, again)}")
+    log(f"K2 {use} vs plain: max|d| {float(err.max()):.3e}, largest |d| / "
+        f"column scale {rel:.3e} (column scales "
+        f"{[f'{v:.3e}' for v in scale]}); repeat bit-equal "
+        f"{torch.equal(got, again)}")
     check(bool((err <= K2_RTOL * scale).all()),
-          f"K2 differs from the plain version by more than {K2_RTOL} of a "
-          "column's scale")
-    check(torch.equal(got, again), "K2 differs between runs")
-    check(float(scale.min()) > 0, "K2 test inputs give a zero column")
+          f"K2 ({use}) differs from the plain version by more than "
+          f"{K2_RTOL} of a column's scale")
+    check(torch.equal(got, again), f"K2 ({use}) differs between runs")
+    check(float(scale.min()) > 0, f"K2 ({use}) inputs give a zero column")
     ms = cuda_time_ms(lambda: blend.blend_backward(*args))
     plain_ms = cuda_time_ms(lambda: blend.blend_backward_plain(*args),
                             iters=2, warmup=1)
@@ -758,110 +834,87 @@ def phase_grad_kernels(captured):
     t_tested = max((n_bytes - n_rows * 9 * 4 + T * K * 9 * 4)
                    / HBM_BYTES_PER_S,
                    n_eval * BLEND_BWD_FLOP_PER_EVAL / FP32_FLOP_PER_S) * 1e3
-    log(f"K2: {ms:.4f} ms, plain {plain_ms:.2f} ms; bound: {n_bytes} B -> "
-        f"{t_bytes:.5f} ms, {work.pairs} gated pairs ({work.eligible} "
+    log(f"K2 {use}: {ms:.4f} ms, plain {plain_ms:.2f} ms; bound: {n_bytes} "
+        f"B -> {t_bytes:.5f} ms, {work.pairs} gated pairs ({work.eligible} "
         f"counted) and {work.sub_tile_tests} sub-tile tests -> {t_ops:.5f} "
         f"ms; every tested pair ({n_eval}) -> {t_tested:.5f} ms "
         "(tested_bound_ms)")
-    k2 = {"name": "blend_bwd", "route": "cuda",
-          "source": "gaussiancity_tpu_torch/csrc/blend_bwd.cu",
-          "replaces": "gaussiancity_tpu/ops/rasterizer/blend_pallas.py:350",
-          "max_abs_err": float(err.max()), "ms": ms, "plain_ms": plain_ms,
-          "bound_ms": max(t_bytes, t_ops),
-          "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-          "library_ms": None, "gated_pairs": work.pairs,
-          "counted_pairs": work.eligible,
-          "sub_tile_tests": work.sub_tile_tests, "tested_pairs": n_eval,
-          "tested_bound_ms": t_tested}
+    return {"max_abs_err": float(err.max()), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "gated_pairs": work.pairs,
+            "counted_pairs": work.eligible,
+            "sub_tile_tests": work.sub_tile_tests, "tested_pairs": n_eval,
+            "tested_bound_ms": t_tested, "slots": n_rows}
 
-    uses = {}
-    for keys, rows, n_rows in captured["segment_sum"]:
-        use = "hash_grid" if rows.shape[0] > 1 else "per_gaussian"
-        uses[use] = (keys, rows, n_rows)
-    check(sorted(uses) == ["hash_grid", "per_gaussian"],
-          "the train step must call K3 for both of its uses")
-    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, err=0.0,
-                  t_bytes=0.0, t_ops=0.0)
-    per_use = {}
-    for use, (keys, rows, n_rows) in sorted(uses.items()):
-        L, M, C = rows.shape
-        got = hash_grid_bwd.segment_sum_sorted(keys, rows, n_rows)
-        again = hash_grid_bwd.segment_sum_sorted(keys, rows, n_rows)
-        want = hash_grid_bwd.segment_sum_sorted_plain(keys, rows, n_rows)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        scale = float(want.abs().max())
-        # the runs of equal kept keys, which set the kernel's work
-        kept = keys[(keys >= 0) & (keys < n_rows)]
-        run_len = torch.unique_consecutive(kept, return_counts=True)[1]
-        log(f"K3 {use}: L={L} M={M} C={C} R={n_rows}; vs plain max|d| "
-            f"{err:.3e} (scale {scale:.3e}); repeat bit-equal "
-            f"{torch.equal(got, again)}; {run_len.numel()} runs of kept "
-            f"keys, median {int(run_len.median())}, longest "
-            f"{int(run_len.max())} rows")
-        check(torch.equal(got, again), f"K3 ({use}) differs between runs")
-        check(err <= K3_RTOL * scale and scale > 0,
-              f"K3 ({use}) differs from index_add_ by more than {K3_RTOL}")
-        plain_ms = cuda_time_ms(
-            lambda: hash_grid_bwd.segment_sum_sorted_plain(keys, rows,
-                                                           n_rows),
-            iters=5, warmup=1)
-        # the library call: one index_add_ over all levels (keys offset
-        # by level, keys outside the table dropped beforehand)
-        k = keys.long()
-        keep = (k >= 0) & (k < n_rows)
-        flat = (k + torch.arange(L, device=k.device)[:, None] * n_rows)[keep]
-        flat_rows = rows[keep]
 
-        def kernel():
-            hash_grid_bwd.segment_sum_sorted(keys, rows, n_rows)
+def k3_measure(use: str, keys, rows, n_rows) -> dict:
+    """K3 against its plain version on one captured call, twice
+    (bit-equal), timed against ``index_add_`` in turns; fails if slower."""
+    import torch
 
-        def library():
-            torch.zeros((L * n_rows, C), device=rows.device).index_add_(
-                0, flat, flat_rows)
+    from gaussiancity_tpu_torch.ops import hash_grid_bwd
 
-        # in turns (kernel, library, library, kernel), the better of each
-        # pair: the two are compared, so they share the card's state
-        runs = {"kernel": [], "library": []}
-        for name in ("kernel", "library", "library", "kernel"):
-            runs[name].append(cuda_time_ms(
-                kernel if name == "kernel" else library, iters=50))
-        ms, library_ms = min(runs["kernel"]), min(runs["library"])
-        n_keys = int(keep.sum())
-        n_bytes = n_keys * (4 + C * 4) + L * n_rows * C * 4
-        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-        t_ops = n_keys * C / FP32_FLOP_PER_S * 1e3
-        log(f"K3 {use}: {ms:.5f} ms (runs {runs['kernel']}), plain "
-            f"{plain_ms:.3f} ms, index_add_ {library_ms:.5f} ms (runs "
-            f"{runs['library']}); bound: {n_bytes} B -> {t_bytes:.5f} ms, "
-            f"{n_keys * C} adds -> {t_ops:.6f} ms")
-        check(ms <= library_ms,
-              f"K3 ({use}) is slower than index_add_: {ms:.5f} ms against "
-              f"{library_ms:.5f} ms")
-        for name, v in (("ms", ms), ("plain_ms", plain_ms),
-                        ("library_ms", library_ms), ("t_bytes", t_bytes),
-                        ("t_ops", t_ops)):
-            totals[name] += v
-        totals["err"] = max(totals["err"], err)
-        per_use[use] = {
-            "L": L, "M": M, "C": C, "R": n_rows, "kept_keys": n_keys,
+    L, M, C = rows.shape
+    got = hash_grid_bwd.segment_sum_sorted(keys, rows, n_rows)
+    again = hash_grid_bwd.segment_sum_sorted(keys, rows, n_rows)
+    want = hash_grid_bwd.segment_sum_sorted_plain(keys, rows, n_rows)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    # the runs of equal kept keys, which set the kernel's work
+    kept = keys[(keys >= 0) & (keys < n_rows)]
+    run_len = torch.unique_consecutive(kept, return_counts=True)[1]
+    log(f"K3 {use}: L={L} M={M} C={C} R={n_rows}; vs plain max|d| "
+        f"{err:.3e} (scale {scale:.3e}); repeat bit-equal "
+        f"{torch.equal(got, again)}; {run_len.numel()} runs of kept "
+        f"keys, median {int(run_len.median())}, longest "
+        f"{int(run_len.max())} rows")
+    check(torch.equal(got, again), f"K3 ({use}) differs between runs")
+    check(err <= K3_RTOL * scale and scale > 0,
+          f"K3 ({use}) differs from index_add_ by more than {K3_RTOL}")
+    plain_ms = cuda_time_ms(
+        lambda: hash_grid_bwd.segment_sum_sorted_plain(keys, rows, n_rows),
+        iters=5, warmup=1)
+    # the library call: one index_add_ over all levels (keys offset by
+    # level, keys outside the table dropped beforehand)
+    k = keys.long()
+    keep = (k >= 0) & (k < n_rows)
+    flat = (k + torch.arange(L, device=k.device)[:, None] * n_rows)[keep]
+    flat_rows = rows[keep]
+
+    def kernel():
+        hash_grid_bwd.segment_sum_sorted(keys, rows, n_rows)
+
+    def library():
+        torch.zeros((L * n_rows, C), device=rows.device).index_add_(
+            0, flat, flat_rows)
+
+    # in turns (kernel, library, library, kernel), the better of each
+    # pair: the two are compared, so they share the card's state
+    runs = {"kernel": [], "library": []}
+    for name in ("kernel", "library", "library", "kernel"):
+        runs[name].append(cuda_time_ms(
+            kernel if name == "kernel" else library, iters=50))
+    ms, library_ms = min(runs["kernel"]), min(runs["library"])
+    n_keys = int(keep.sum())
+    n_bytes = n_keys * (4 + C * 4) + L * n_rows * C * 4
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_keys * C / FP32_FLOP_PER_S * 1e3
+    log(f"K3 {use}: {ms:.5f} ms (runs {runs['kernel']}), plain "
+        f"{plain_ms:.3f} ms, index_add_ {library_ms:.5f} ms (runs "
+        f"{runs['library']}); bound: {n_bytes} B -> {t_bytes:.5f} ms, "
+        f"{n_keys * C} adds -> {t_ops:.6f} ms")
+    check(ms <= library_ms,
+          f"K3 ({use}) is slower than index_add_: {ms:.5f} ms against "
+          f"{library_ms:.5f} ms")
+    return {"L": L, "M": M, "C": C, "R": n_rows, "kept_keys": n_keys,
             "runs": run_len.numel(), "longest_run": int(run_len.max()),
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "t_bytes": t_bytes, "t_ops": t_ops,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "max_abs_err": err}
-    k3 = {"name": "segment_sum", "route": "cuda",
-          "source": "gaussiancity_tpu_torch/csrc/segment_sum.cu",
-          "replaces": "gaussiancity_tpu/ops/hash_grid_bwd.py:57",
-          "max_abs_err": totals["err"], "ms": totals["ms"],
-          "plain_ms": totals["plain_ms"],
-          "bound_ms": max(totals["t_bytes"], totals["t_ops"]),
-          "bound_by": ("bytes" if totals["t_bytes"] >= totals["t_ops"]
-                       else "operations"),
-          "library_ms": totals["library_ms"], "uses": per_use}
-    log("K3 line: both uses of one step summed (ms, plain, library, bound),"
-        " and each use under \"uses\"")
-    return [k2, k3]
 
 
 def phase_small_two_model(devices=("cuda", "cpu")):
@@ -1433,6 +1486,437 @@ def report_profile(prof, wall_ms: float, what: str) -> None:
     check(busy_ms > 0, "the profiler saw no device time")
 
 
+# ---------------------------------------------------------------------------
+# the BLDG (PTv3) train step and the training loop
+# ---------------------------------------------------------------------------
+
+BLDG_POINTS = 16384  # the BLDG recipe's train_max_points
+# a gradient below this share of the model's largest is rounding noise of
+# a quantity that is 0 in exact arithmetic (a bias that feeds a train-mode
+# BatchNorm)
+ZERO_GRAD = 1e-6
+
+
+def tiny_bldg_config():
+    """The tiny train config with a BLDG generator: no encoder, sin/cos,
+    z 16, the small PTv3; the test crop is the train crop."""
+    from gaussiancity_tpu_torch.config import PTv3Config
+    from gaussiancity_tpu_torch.testing import TINY_PTV3
+
+    cfg = tiny_train_config()
+    return cfg.replace(
+        dataset=cfg.dataset.replace(
+            test_crop_size=cfg.dataset.train_crop_size),
+        network=cfg.network.replace(
+            scale_factor=0.65, encoder=None, encoder_out_dim=3,
+            pos_emd="SIN_COS", sin_cos_freq_bends=4, z_dim=16,
+            ptv3=PTv3Config(**TINY_PTV3)))
+
+
+def ptv3_stats(generator) -> dict:
+    """Copies of PTv3's BatchNorm running statistics, by name."""
+    return {k: v.detach().cpu().clone()
+            for k, v in generator.state_dict().items()
+            if k.startswith("pt_net.") and k.endswith((".mean", ".var"))}
+
+
+def phase_small_bldg_train(device):
+    """Two tiny BLDG train steps (PTv3 in training mode, drop path 0) on
+    the card (kernels) and on the CPU (plain versions) from the same seeded
+    weights and the same z table: losses, gradients and PTv3's running
+    statistics agree."""
+    import torch
+
+    from gaussiancity_tpu_torch.models import ptv3
+    from gaussiancity_tpu_torch.testing import tiny_bldg_batch
+    from gaussiancity_tpu_torch.training.step import Trainer
+    from gaussiancity_tpu_torch.utils import helpers
+
+    cfg = tiny_bldg_config()
+    table = torch.randn((helpers.MAX_N_INSTANCES, 16),
+                        generator=torch.Generator().manual_seed(7))
+    get_z = helpers.get_z
+    helpers.get_z = lambda gen, ins, z_dim: table.to(ins.device)[
+        ins.long() % table.shape[0]]
+    runs = {}
+    try:
+        for dev in (device, "cpu"):
+            trainer = Trainer(cfg, device=dev, seed=3)
+            ptv3.no_drop_path(trainer.generator)
+            batch = {k: torch.as_tensor(v, device=dev)
+                     for k, v in tiny_bldg_batch(cfg, 256, seed=4).items()}
+            steps = []
+            for _ in range(2):
+                m = {k: float(v) for k, v in trainer.train_step(batch).items()}
+                grads = {f"{n}.{k}": p.grad.detach().cpu().clone()
+                         for n, mod in (("G", trainer.generator),
+                                        ("D", trainer.discriminator))
+                         for k, p in mod.named_parameters()}
+                steps.append((m, grads, ptv3_stats(trainer.generator)))
+            runs[dev] = steps
+    finally:
+        helpers.get_z = get_z
+    lr = cfg.train.generator.lr
+    for i, ((m_card, g_card, s_card), (m_cpu, g_cpu, s_cpu)) in enumerate(
+            zip(runs[device], runs["cpu"])):
+        for k in m_cpu:
+            ok = abs(m_card[k] - m_cpu[k]) <= (STEP_LOSS_RTOL * abs(m_cpu[k])
+                                               + 1e-7)
+            check(np.isfinite(m_card[k]) and ok,
+                  f"tiny BLDG step {i} {k}: card {m_card[k]} vs CPU "
+                  f"{m_cpu[k]}")
+        check(m_card["PTv3PoolOverflow"] == 0,
+              "tiny BLDG step: PTv3 neighbour overflow")
+        gmax = max(float(g.abs().max()) for n, g in g_cpu.items()
+                   if n.startswith("G."))
+        worst, zero = 0.0, []
+        for name, want in g_cpu.items():
+            scale = float(want.abs().max())
+            err = float((g_card[name] - want).abs().max())
+            if name.startswith("G.") and scale < ZERO_GRAD * gmax:
+                zero.append(name)
+                check(float(g_card[name].abs().max()) < ZERO_GRAD * gmax,
+                      f"tiny BLDG step {i} gradient {name} is not ~0 on the "
+                      "card")
+                continue
+            worst = max(worst, err / scale if scale > 0 else err)
+            check(err <= STEP_GRAD_RTOL * scale,
+                  f"tiny BLDG step {i} gradient {name}: card vs CPU max|d| "
+                  f"{err:.3e}, scale {scale:.3e}")
+        for name, want in s_cpu.items():
+            # a running mean follows its input's bias, which Adam moves by
+            # up to lr either way where its gradient is rounding noise
+            slack = (ptv3.MaskedBatchNorm.MOMENTUM * 2 * lr * i
+                     if name.endswith(".mean") else 0)
+            err = float((s_card[name] - want).abs().max())
+            check(err <= STEP_GRAD_RTOL * float(want.abs().max()) + slack,
+                  f"tiny BLDG step {i} running statistic {name}: card vs "
+                  f"CPU max|d| {err:.3e}")
+        log(f"tiny BLDG step {i} card vs CPU: GenLoss {m_card['GenLoss']:.6f}"
+            f" / {m_cpu['GenLoss']:.6f}; worst gradient max|d| / scale "
+            f"{worst:.3e} over {len(g_cpu) - len(zero)} tensors ({len(zero)} "
+            f"0 in exact arithmetic, below {ZERO_GRAD} of the largest on "
+            f"both); {len(s_cpu)} running statistics agree")
+
+
+def bldg_train_config():
+    """The BLDG recipe at its own widths (PTv3 32 -> 512 channels, patches
+    of 1024, drop path 0.3, z 256, sin/cos); the perceptual loss may run
+    on random VGG weights."""
+    from gaussiancity_tpu_torch.config import bldg_recipe
+
+    cfg = bldg_recipe()
+    return cfg.replace(train=cfg.train.replace(allow_random_vgg=True))
+
+
+def building_batch(cfg, projections, centers, device, seed: int = 0):
+    """16,384 points of one building's shell (facade and roof) from the
+    synthetic city, as a train batch and as an eval batch.
+
+    The city's projections are extruded as a building's are, bottom ring
+    included; the building with the most shell points (at least 16,384)
+    is taken, a sorted random subset of 16,384 kept (as ``PadPoints``
+    keeps one) and normalised per instance as ``NormalizePointCords``
+    does.  The camera looks at the building's mid-height diagonally from
+    0.75 of the distance at which its height fills the crop; the crops are
+    centred and the targets random."""
+    import torch
+
+    from gaussiancity_tpu_torch.data.transforms import _normalize_rel_cords
+    from gaussiancity_tpu_torch.inference.pipeline import (
+        get_quat_from_look_at)
+    from gaussiancity_tpu_torch.ops import extrusion as ext
+
+    ds = cfg.dataset
+    r = projections["REST"]
+    pts = ext.extrude_points_np(r["INS"], r["TD_HF"], r["BU_HF"], r["PTS"],
+                                ext.SegInsRelation(),
+                                ext.GOOGLE_EARTH_CLASS_SCALES)
+    ids = pts[:, 4].astype(np.int64)
+    bldg = np.where(ids >= 100, ids - (ids - 100) % 2, -1)
+    uniq, counts = np.unique(bldg[bldg >= 0], return_counts=True)
+    iid = int(uniq[np.argmax(counts)])
+    shell = pts[bldg == iid]
+    log(f"BLDG batch: building {iid} of {len(uniq)}, {len(shell)} shell "
+        f"points (facade {int((shell[:, 4] == iid).sum())}, roof "
+        f"{int((shell[:, 4] == iid + 1).sum())})")
+    check(len(shell) >= BLDG_POINTS,
+          f"no building of the city has {BLDG_POINTS} shell points")
+    rng = np.random.default_rng(seed)
+    shell = shell[np.sort(rng.choice(len(shell), BLDG_POINTS, replace=False))]
+    pts9 = np.concatenate([shell.astype(np.float32),
+                           _normalize_rel_cords(shell, centers)], axis=1)
+    cx, cy, _, _, d = centers[iid]
+    W, H = ds.sensor_size
+    focal = ds.cam_k[0]
+    target = np.array([cx, cy, d / 2])
+    dist = 0.75 * d * focal / ds.train_crop_size[1]
+    cam_pos = target + np.array([dist / np.sqrt(2), dist / np.sqrt(2),
+                                 d / 4])
+    quat = get_quat_from_look_at(cam_pos, target)
+    log(f"BLDG batch: camera {np.round(cam_pos, 1).tolist()} looking at "
+        f"{np.round(target, 1).tolist()} from {dist:.1f} units")
+    f32 = dict(dtype=torch.float32, device=device)
+
+    def batch(crop):
+        Wc, Hc = crop
+        return {
+            "pts": torch.as_tensor(pts9[None], **f32),
+            "pts_mask": torch.ones((1, BLDG_POINTS), dtype=torch.bool,
+                                   device=device),
+            "rgb": torch.as_tensor(rng.uniform(-1, 1, (1, Hc, Wc, 3)), **f32),
+            "seg": torch.as_tensor(np.eye(ds.n_classes)[rng.integers(
+                0, ds.n_classes, (1, Hc, Wc))], **f32),
+            "msk": torch.ones((1, Hc, Wc, 1), **f32),
+            "cam_pos": torch.as_tensor(cam_pos[None], **f32),
+            "cam_quat": torch.as_tensor(np.asarray(quat)[None], **f32),
+            "crp_xy": torch.tensor([[(W - Wc) // 2, (H - Hc) // 2]],
+                                   dtype=torch.int32, device=device)}
+
+    return batch(ds.train_crop_size), batch(ds.test_crop_size)
+
+
+def phase_bldg_kernels(trainer, batch) -> dict:
+    """One BLDG step with the arguments of its K1, K2 and K3 calls kept;
+    K1, K2 and K3 (per Gaussian) against their plain versions on them.
+    Returns each kernel's "bldg_step" use entry."""
+    from gaussiancity_tpu_torch.ops import hash_grid_bwd
+    from gaussiancity_tpu_torch.ops.rasterizer import blend
+
+    captured = capture_calls(
+        [(blend, "blend_forward"), (blend, "blend_backward"),
+         (hash_grid_bwd, "segment_sum_sorted")],
+        lambda: trainer.train_step(batch))
+    check(len(captured["blend_forward"]) == 1
+          and len(captured["blend_backward"]) == 1
+          and len(captured["segment_sum_sorted"]) == 1,
+          "a BLDG step must call K1, K2 and K3 (per Gaussian) once each: "
+          f"{ {k: len(v) for k, v in captured.items()} }")
+    k1 = k1_measure("BLDG step", captured["blend_forward"][0])
+    log(f"BLDG step: the render reaches {k1['touched_share']:.4f} of the "
+        "crop's pixels")
+    k2 = k2_measure("BLDG step", captured["blend_backward"][0])
+    k3 = k3_measure("BLDG step, per Gaussian",
+                    *captured["segment_sum_sorted"][0])
+    del k3["t_bytes"], k3["t_ops"]
+    return {"blend_fwd": k1, "blend_bwd": k2, "segment_sum": k3}
+
+
+def phase_bldg_train(trainer, batch, eval_batch, n_warm: int = 2,
+                     n_timed: int = 5) -> dict:
+    """The full-width BLDG train step: warm-up, then timed steps with the
+    launch counts set to 0 just before them, the stage split (PTv3 timed
+    by hooks on ``pt_net``), the peak memory; then one eval step that must
+    leave PTv3's running statistics as they are."""
+    import torch
+
+    from gaussiancity_tpu_torch.ops import hash_grid_bwd
+    from gaussiancity_tpu_torch.ops.rasterizer import blend
+
+    gen = trainer.generator
+    net = gen.pt_net.net
+    log(f"BLDG trainer: PTv3 enc {net.cfg.enc_channels} dec "
+        f"{net.cfg.dec_channels} patches {net.cfg.enc_patch_size[0]}, drop "
+        f"path up to {net.enc4_block1.drop_path}, z {trainer.cfg.network.z_dim}"
+        f", {sum(p.numel() for p in gen.parameters())} generator weights")
+
+    def snapshot():
+        return {"PTv3 stem": net.embedding_stem.kernel.detach().clone(),
+                "PTv3 enc4": net.enc4_block1.mlp_fc2.weight.detach().clone(),
+                "MLP": gen.ga_mlp.fc_1.weight.detach().clone(),
+                "D": torch.cat([p.detach().reshape(-1) for p in
+                                trainer.discriminator.parameters()])}
+
+    t0 = time.perf_counter()
+    for i in range(n_warm):
+        m = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        log(f"BLDG warm-up step {i}: GenLoss {float(m['GenLoss']):.5f} "
+            f"DisLoss {float(m['DisLoss']):.5f} RasterGradTruncated "
+            f"{int(m['RasterGradTruncated'])} PTv3PoolOverflow "
+            f"{int(m['PTv3PoolOverflow'])}")
+    log(f"BLDG warm-up: {n_warm} steps in {time.perf_counter() - t0:.2f} s")
+    ptv3_ms = []
+
+    def pre(module, args):
+        torch.cuda.synchronize()
+        module._t0 = time.perf_counter()
+
+    def post(module, args, out):
+        torch.cuda.synchronize()
+        ptv3_ms.append((time.perf_counter() - module._t0) * 1e3)
+
+    hooks = [gen.pt_net.register_forward_pre_hook(pre),
+             gen.pt_net.register_forward_hook(post)]
+    trainer.stage_ms.clear()
+    trainer.time_stages = True
+    torch.cuda.reset_peak_memory_stats()
+    k3 = hash_grid_bwd.segment_sum_sorted
+    reduce_rows = hash_grid_bwd.reduce_rows
+    per_gaussian = [0]
+
+    def observed(*args):
+        before = k3.launches
+        out = reduce_rows(*args)
+        per_gaussian[0] += k3.launches - before
+        return out
+
+    hash_grid_bwd.reduce_rows = observed
+    counters = {"blend_fwd": blend.blend_forward,
+                "blend_bwd": blend.blend_backward, "segment_sum": k3}
+    for fn in counters.values():
+        fn.launches = 0
+    step_ms = []
+    try:
+        for i in range(n_timed):
+            before, stats = snapshot(), ptv3_stats(gen)
+            counts = {name: fn.launches for name, fn in counters.items()}
+            k3_before = per_gaussian[0]
+            t0 = time.perf_counter()
+            m = trainer.train_step(batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            per_step = {name: fn.launches - counts[name]
+                        for name, fn in counters.items()}
+            check(min(per_step.values()) >= 1
+                  and per_gaussian[0] - k3_before >= 1,
+                  f"BLDG step {i}: K1, K2 or K3 (per Gaussian) was not "
+                  f"launched ({per_step})")
+            after, stats_after = snapshot(), ptv3_stats(gen)
+            m = {k: float(v) for k, v in m.items()}
+            log(f"BLDG step {i}: {step_ms[-1]:.2f} ms " + " ".join(
+                f"{k} {v:.5g}" for k, v in sorted(m.items())))
+            for k, v in m.items():
+                check(np.isfinite(v), f"BLDG step {i}: {k} is not finite")
+            check(m["RasterGradTruncated"] == 0,
+                  "RasterGradTruncated must be 0 at grad_budget 65536")
+            check(m["PTv3PoolOverflow"] == 0,
+                  "PTv3PoolOverflow must be 0 on the building's points")
+            for name in before:
+                change = float((after[name] - before[name]).abs().max())
+                check(change > 0, f"BLDG step {i} left the {name} unchanged")
+            moved = sum(not torch.equal(stats[k], stats_after[k])
+                        for k in stats)
+            check(moved == len(stats),
+                  f"BLDG step {i} moved {moved} of {len(stats)} running "
+                  "statistics")
+        log(f"  weights changed (max |d|, last step): " + ", ".join(
+            f"{n} {float((after[n] - before[n]).abs().max()):.3e}"
+            for n in before) + f"; all {len(stats)} running statistics moved")
+    finally:
+        trainer.time_stages = False
+        hash_grid_bwd.reduce_rows = reduce_rows
+        for h in hooks:
+            h.remove()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    launches["segment_sum_by_use"] = {"bldg_step": per_gaussian[0]}
+    log(f"launches on the {n_timed} timed BLDG steps: {launches}")
+    check(per_gaussian[0] == launches["segment_sum"],
+          "every K3 launch of a BLDG step must be the per-Gaussian one")
+    med = float(np.median(step_ms))
+    log(f"BLDG train step: median {med:.2f} ms of {n_timed} (stage timers "
+        f"synchronise the device at each boundary); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    split = dict(trainer.stage_ms)
+    split["ptv3"] = ptv3_ms
+    split["sincos+mlp"] = [g - p for g, p in zip(split["generator"], ptv3_ms)]
+    for stage, ms in split.items():
+        log(f"  stage {stage:10s} " + " ".join(f"{v:9.2f}" for v in ms)
+            + f"   median {float(np.median(ms)):9.2f} ms")
+    stats = ptv3_stats(gen)
+    metrics, fake = trainer.eval_step(eval_batch)
+    Wt, Ht = trainer.cfg.dataset.test_crop_size
+    check(tuple(fake.shape) == (1, Ht, Wt, 3)
+          and np.isfinite(float(metrics["L1Loss"])),
+          "the BLDG eval step must render the test crop")
+    check(all(torch.equal(v, ptv3_stats(gen)[k]) for k, v in stats.items()),
+          "the BLDG eval step changed PTv3's running statistics")
+    log(f"BLDG eval step: L1Loss {float(metrics['L1Loss']):.5f}, fake "
+        f"{tuple(fake.shape)}; PTv3's running statistics unchanged")
+    return launches
+
+
+def loop_config(out_dir: str):
+    """A tiny BLDG config on the synthetic dataset for the training loop:
+    two epochs, validation and a checkpoint after each."""
+    from gaussiancity_tpu_torch.config import TestConfig
+
+    cfg = tiny_bldg_config()
+    return cfg.replace(
+        exp_name="chip_smoke_loop", output_dir=out_dir,
+        dataset=cfg.dataset.replace(
+            name="SYNTHETIC", proj_size=64, map_size=0, pin_memory=(),
+            train_min_pixels=4, train_n_instances=1,
+            train_instance_range=(10, 16384), test_n_instances=1,
+            test_instance_range=(10, 16384)),
+        train=cfg.train.replace(n_epochs=2, max_points=256, log_freq=2,
+                                ckpt_save_freq=1, n_workers=2,
+                                prefetch_batches=2),
+        test=TestConfig(test_freq=1))
+
+
+def phase_train_loop(device, n_items: int = 4):
+    """``train()`` on the card over ``SyntheticDataset`` (``n_items`` a
+    split): one epoch with validation and a checkpoint, then a resume from
+    that checkpoint for the second epoch; steps per second of each call
+    (set-up, validation and checkpoint included)."""
+    import functools
+    import os
+    import shutil
+
+    from gaussiancity_tpu_torch.data import datasets
+    from gaussiancity_tpu_torch.training import checkpoint
+    from gaussiancity_tpu_torch.training.train import train
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "output", "chip_smoke_loop")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    cfg = loop_config(out_dir)
+    ckpt_dir = os.path.join(out_dir, "ckpt", cfg.exp_name)
+    synthetic = datasets.DATASETS["SYNTHETIC"]
+    datasets.DATASETS["SYNTHETIC"] = functools.partial(
+        datasets.SyntheticDataset, n_items=n_items)
+    try:
+        t0 = time.perf_counter()
+        first = train(cfg.replace(train=cfg.train.replace(n_epochs=1)),
+                      device=device)
+        t1 = time.perf_counter()
+        check(first.device.type == "cuda", "train() did not run on the card")
+        check(checkpoint.latest_epoch(ckpt_dir) == 1,
+              "train() wrote no epoch-1 checkpoint")
+        resumed = train(cfg, resume_from=ckpt_dir, device=device)
+        t2 = time.perf_counter()
+        check(first.step == n_items and resumed.step == 2 * n_items,
+              f"train() took {first.step} + {resumed.step - first.step} "
+              f"steps, not {n_items} an epoch")
+        check(checkpoint.latest_epoch(ckpt_dir) == 2,
+              "the resumed train() wrote no epoch-2 checkpoint")
+        log_path = os.path.join(out_dir, "logs", cfg.exp_name,
+                                "scalars.jsonl")
+        with open(log_path) as f:
+            rows = [json.loads(line) for line in f]
+        losses = [r["Loss/Batch/GenLoss"] for r in rows
+                  if "Loss/Batch/GenLoss" in r]
+        val = [r["Loss/Epoch/L1Loss/Val"] for r in rows
+               if "Loss/Epoch/L1Loss/Val" in r]
+        overflow = [r["Raster/Batch/PTv3PoolOverflow"] for r in rows
+                    if "Raster/Batch/PTv3PoolOverflow" in r]
+        check(len(losses) == 2 * n_items and np.isfinite(losses).all(),
+              f"train() logged {len(losses)} step losses")
+        check(len(val) == 2 and np.isfinite(val).all(),
+              "train() did not validate after each epoch")
+        check(max(overflow) == 0, "train() saw a PTv3 neighbour overflow")
+        log(f"training loop on the card: epoch 1 {first.step} steps in "
+            f"{t1 - t0:.2f} s ({first.step / (t1 - t0):.3f} steps/s), "
+            f"resumed epoch 2 {resumed.step - first.step} steps in "
+            f"{t2 - t1:.2f} s ({(resumed.step - first.step) / (t2 - t1):.3f}"
+            f" steps/s), set-up, validation and checkpoints included; "
+            f"GenLoss {losses[0]:.4f} -> {losses[-1]:.4f}, val L1 {val}")
+    finally:
+        datasets.DATASETS["SYNTHETIC"] = synthetic
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -1498,24 +1982,55 @@ def main() -> int:
     kernels.append(g1b)
     del captured, g1b_args
     phase_small_train(device)
-    timed.append(phase_train(trainer, batch))
+    rest_step = phase_train(trainer, batch)
+    timed.append(rest_step)
     g1b["backward_ab"] = phase_train_backward_ab(trainer, batch)
     if profiling:
         phase_train_profile(trainer, batch)
     del trainer
     torch.cuda.empty_cache()
+
+    t_phase = time.perf_counter()
+    phase_small_bldg_train(device)
+    log(f"phase time: tiny BLDG steps card vs CPU "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    trainer = Trainer(bldg_train_config(), device=device, seed=1)
+    batch, eval_batch = building_batch(trainer.cfg, projections, centers,
+                                       device)
+    bldg_uses = phase_bldg_kernels(trainer, batch)
+    bldg_step = phase_bldg_train(trainer, batch, eval_batch)
+    timed.append(bldg_step)
+    for k in kernels:
+        if k["name"] in bldg_uses:
+            use = dict(bldg_uses[k["name"]])
+            use["launches"] = bldg_step["segment_sum_by_use"]["bldg_step"] \
+                if k["name"] == "segment_sum" else bldg_step[k["name"]]
+            k.setdefault("uses", {})["bldg_step"] = use
+    if profiling:
+        phase_train_profile(trainer, batch)
+    del trainer, batch, eval_batch
+    torch.cuda.empty_cache()
+    log(f"phase time: full-width BLDG train step "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    phase_train_loop(device)
+    log(f"phase time: training loop {time.perf_counter() - t_phase:.1f} s")
     kernels.append(phase_k4(device))
-    # launches on the timed passes: REST frame, two-model frame, train
-    # steps; K4's are those of its probe's timed drive; per use, K3's
-    # from the train steps and G1's from the pass of its use
+    # launches on the timed passes: REST frame, two-model frame, REST
+    # train steps, BLDG train steps; K4's are those of its probe's timed
+    # drive; per use, K3's from the REST train steps, G1's from the pass
+    # of its use, and the "bldg_step" uses' from the BLDG train steps
     g1_pass = {"rest_frame": 0, "two_model_frame_rest_bucket": 1,
                "train_step": 2}
     for k in kernels:
         if "launches" not in k:
             k["launches"] = sum(t.get(k["name"], 0) for t in timed)
         for use, entry in k.get("uses", {}).items():
+            if "launches" in entry:
+                continue
             if k["name"] == "segment_sum":
-                entry["launches"] = timed[-1]["segment_sum_by_use"][use]
+                entry["launches"] = rest_step["segment_sum_by_use"][use]
             else:
                 entry["launches"] = timed[g1_pass[use]][k["name"]]
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")

@@ -3,8 +3,8 @@
 
 The port's own copy of the JAX package's dataclasses (same field names and
 defaults, so a config written by either package loads in the other) and the
-REST recipe preset.  Configs are frozen dataclasses that serialize to and
-from nested dicts / JSON.
+REST, BLDG and CAR recipe presets.  Configs are frozen dataclasses that
+serialize to and from nested dicts / JSON.
 
 Some rasterizer fields shape the JAX package's static-shape binning
 (``max_tiles_per_gaussian``, ``bin_tiers``, ``visible_cap``, ``chunk``,
@@ -352,4 +352,25 @@ def bldg_recipe(dataset: str = "GOOGLE_EARTH") -> Config:
         ptv3=PTv3Config(enabled=True, pool_capacity_divisor=2),
     )
     return Config(exp_name="BLDG", dataset=ds, network=net,
+                  rasterizer=RasterizerConfig(grad_budget=65536))
+
+
+def car_recipe() -> Config:
+    """Car (CAR) generator, KITTI-360 only: no encoder, sin/cos,
+    per-instance z, PTv3 on."""
+    ds = kitti_360_dataset().replace(
+        train_n_instances=1,
+        train_instance_range=(10000, 16384),
+        test_n_instances=1,
+        test_instance_range=(10000, 16384),
+    )
+    net = GaussianNetworkConfig(
+        scale_factor=0.65,
+        encoder=None,
+        encoder_out_dim=3,
+        pos_emd="SIN_COS",
+        z_dim=256,
+        ptv3=PTv3Config(enabled=True),
+    )
+    return Config(exp_name="CAR", dataset=ds, network=net,
                   rasterizer=RasterizerConfig(grad_budget=65536))

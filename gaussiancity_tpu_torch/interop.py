@@ -10,6 +10,8 @@ The PTv3 subtree (``pt_net``) keeps its names: its ``SubMConv`` kernels
 ``[K^3, C, F]`` are copied as they are, ``LayerNorm_0`` scale and bias
 become the ``nn.LayerNorm`` weight and bias, and the ``MaskedBatchNorm``
 running ``mean`` / ``var`` come from the ``batch_stats`` collection.
+``load_train_state`` carries a whole JAX ``TrainState`` (without Adam's
+moments) into the port's ``Trainer``.
 """
 
 from __future__ import annotations
@@ -164,3 +166,21 @@ def vgg_state_from_flax(params_np: Mapping) -> Dict[str, torch.Tensor]:
     for name, p in params_np.items():
         _conv({"Conv_0": p}, name, out)
     return out
+
+
+def load_train_state(trainer, state_np) -> None:
+    """Load a JAX ``TrainState`` whose leaves are numpy arrays into the
+    port's ``Trainer``: the generator's params with its ``g_stats``
+    (PTv3's running statistics), the discriminator's params with
+    ``d_stats`` (its spectral-norm state), the VGG params of the perceptual
+    loss and the step.  Adam's moments are not carried: both optimizers
+    start fresh."""
+    trainer.generator.load_state_dict(generator_state_from_flax(
+        {"params": state_np.g_params, "batch_stats": state_np.g_stats or {}},
+        trainer.cfg.network))
+    if trainer.use_disc:
+        trainer.discriminator.load_state_dict(discriminator_state_from_flax(
+            state_np.d_params, state_np.d_stats))
+    trainer.ploss.model.load_state_dict(
+        vgg_state_from_flax(state_np.ploss_params))
+    trainer.step = int(state_np.step)

@@ -4,9 +4,13 @@
 
 Scene encoder -> positional encoding (hash grid or sin/cos) -> optional
 PTv3 features -> per-point attribute MLP.  The REST generator (GLOBAL
-encoder, hash grid) and the BLDG generator (sin/cos, style z, PTv3; eval
-only) are ported.  ``encoder="LOCAL"`` and the bfloat16 compute dtype
-raise ``NotImplementedError``.
+encoder, hash grid) and the BLDG generator (sin/cos, style z, PTv3) are
+ported.  ``encoder="LOCAL"`` and the bfloat16 compute dtype raise
+``NotImplementedError``.
+
+The module's mode stands for the JAX ``train`` flag: in training mode
+PTv3's BatchNorm uses and updates the batch statistics and drop path is
+on (its masks drawn from the ``dp_generator`` that ``forward`` takes).
 
 Public layouts follow the JAX package: projection maps are NHWC and
 points [B, N, C]; convolutions permute to NCHW inside.  Submodule and
@@ -208,7 +212,8 @@ class GaussianAttrMLP(nn.Module):
 class Generator(nn.Module):
     """forward(proj_uv [B, N, 2], rel_xyz [B, N, 3], batch_idx, onehots
     [B, N, n_classes], z [B, N, z_dim] | None, proj_hf [B, H, W, 1],
-    proj_seg [B, H, W, n_classes], point_mask [B, N]) -> {attr: tensor}."""
+    proj_seg [B, H, W, n_classes], point_mask [B, N], dp_generator) ->
+    {attr: tensor}."""
 
     def __init__(self, cfg: GaussianNetworkConfig, n_classes: int,
                  proj_size: int):
@@ -265,7 +270,8 @@ class Generator(nn.Module):
                 m.reset_parameters()
 
     def forward(self, proj_uv, rel_xyz, batch_idx, onehots, z,
-                proj_hf=None, proj_seg=None, point_mask=None):
+                proj_hf=None, proj_seg=None, point_mask=None,
+                dp_generator: Optional[torch.Generator] = None):
         B, N = rel_xyz.shape[:2]
         if self.cfg.encoder == "GLOBAL":
             proj_feat = self.proj_encoder(proj_hf, proj_seg)
@@ -276,5 +282,6 @@ class Generator(nn.Module):
         pt_feat = self.pos_encoder(pt_feat)
         if self.cfg.ptv3.enabled:
             pt_feat = torch.cat(
-                [pt_feat, self.pt_net(pt_feat, rel_xyz, point_mask)], dim=-1)
+                [pt_feat, self.pt_net(pt_feat, rel_xyz, point_mask,
+                                      dp_generator)], dim=-1)
         return self.ga_mlp(pt_feat, onehots, z)

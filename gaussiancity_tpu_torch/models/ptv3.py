@@ -1,6 +1,6 @@
 # -*- coding: utf-8 -*-
-"""Point Transformer V3, the serving (eval) path (counterpart of
-``gaussiancity_tpu/models/ptv3.py``; upstream models/pt_v3.py:1137-1344).
+"""Point Transformer V3 (counterpart of ``gaussiancity_tpu/models/ptv3.py``;
+upstream models/pt_v3.py:1137-1344).
 
 Serialized point-cloud U-Net: a k5 submanifold-conv stem, encoder stages
 of transformer blocks (CPE conv, patch attention along a space-filling
@@ -15,11 +15,19 @@ What differs from the JAX package, by design:
   (``pool_capacity_divisor``) are TPU machinery.  Each pooled level has
   exactly its cluster count of points, as upstream's ``torch.unique``
   gives; the result equals the JAX package's wherever its pooled-capacity
-  overflow counter reads 0;
-- eval only.  ``MaskedBatchNorm`` normalises with its running statistics;
-  drop path is the identity.  A module in training mode raises
-  ``NotImplementedError``, as do ``enable_rpe`` and the sorted-merge
-  neighbour search (``dense_nbr_extent == 0``): later slices.
+  overflow counter reads 0.  So the pooling part of the JAX package's
+  ``PTv3PoolOverflow`` diagnostic is 0 here by construction; the part
+  that remains is the dense-neighbour overflow (valid points outside
+  ``dense_nbr_extent``), which ``PTv3Single.overflow`` holds after each
+  forward;
+- the module's mode stands for the JAX ``train`` flag.  In training mode
+  ``MaskedBatchNorm`` normalises with the batch statistics and folds them
+  into its running averages, and drop path draws its masks from the
+  ``torch.Generator`` the caller passes.  Since each sample runs alone,
+  training mode takes one sample at a time (the JAX ``Trainer`` takes
+  batch size 1 per device); B > 1 raises ``NotImplementedError``, as do
+  ``enable_rpe`` and the sorted-merge neighbour search
+  (``dense_nbr_extent == 0``): later slices.
 """
 
 from __future__ import annotations
@@ -38,26 +46,26 @@ from gaussiancity_tpu_torch.ops import serialization as ser
 ATTN_CHUNK_BYTES = 256 * 1024 * 1024
 
 
-def _eval_only(module: nn.Module) -> None:
-    if module.training:
-        raise NotImplementedError(
-            "PTv3 runs in eval mode only in the PyTorch port: the "
-            "MaskedBatchNorm train statistics and drop path are a later "
-            "slice (call .eval())")
-
-
 def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x)  # exact (erf) GELU
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm1d (eps 1e-3) normalising with its running statistics,
-    which live in the buffers ``mean`` and ``var`` (the Flax
-    ``batch_stats`` collection)."""
+    """BatchNorm1d (eps 1e-3, momentum 0.01) over the rows it is given, the
+    valid points of one sample.  The running statistics live in the
+    buffers ``mean`` and ``var`` (the Flax ``batch_stats`` collection).
 
-    def __init__(self, channels: int, eps: float = 1e-3):
+    Eval normalises with them.  Training normalises with the batch mean
+    and the biased variance, taken in two passes as the JAX package takes
+    them (autograd flows through both), and folds the batch mean and the
+    unbiased variance (denominator ``max(n - 1, 1)``) into the running
+    averages: ``new = (1 - momentum) * old + momentum * batch``."""
+
+    EPS = 1e-3
+    MOMENTUM = 0.01
+
+    def __init__(self, channels: int):
         super().__init__()
-        self.eps = eps
         self.scale = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels))
@@ -72,8 +80,18 @@ class MaskedBatchNorm(nn.Module):
             self.var.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        _eval_only(self)
-        y = (x - self.mean) * torch.rsqrt(self.var + self.eps)
+        if not self.training:
+            y = (x - self.mean) * torch.rsqrt(self.var + self.EPS)
+            return y * self.scale + self.bias
+        n = max(x.shape[0], 1)
+        mean = x.sum(dim=0) / n
+        vs = ((x - mean) ** 2).sum(dim=0)
+        with torch.no_grad():
+            mom = self.MOMENTUM
+            self.mean.copy_((1.0 - mom) * self.mean + mom * mean)
+            self.var.copy_((1.0 - mom) * self.var
+                           + mom * (vs / max(n - 1, 1)))
+        y = (x - mean) * torch.rsqrt(vs / n + self.EPS)
         return y * self.scale + self.bias
 
 
@@ -212,13 +230,18 @@ class PatchAttention(nn.Module):
 
 class PTBlock(nn.Module):
     """CPE (SubMConv k3 -> Linear -> LayerNorm, residual) -> attention
-    (residual) -> MLP (residual); drop path is the identity in eval."""
+    (residual) -> MLP (residual).  Drop path at rate ``drop_path`` scales
+    the attention and MLP branches (not CPE) by a per-point Bernoulli keep
+    mask over ``1 - drop_path``; it is the identity in eval mode or at
+    rate 0."""
 
     def __init__(self, channels: int, num_heads: int, patch_size: int,
-                 mlp_ratio: float, order_index: int, enable_cpe: bool):
+                 mlp_ratio: float, order_index: int, enable_cpe: bool,
+                 drop_path: float = 0.0):
         super().__init__()
         self.order_index = order_index
         self.enable_cpe = enable_cpe
+        self.drop_path = drop_path
         if enable_cpe:
             self.cpe_conv = SubMConv(channels, channels, 3)
             self.cpe_fc = nn.Linear(channels, channels)
@@ -230,14 +253,28 @@ class PTBlock(nn.Module):
         self.mlp_fc1 = nn.Linear(channels, hidden)
         self.mlp_fc2 = nn.Linear(hidden, channels)
 
-    def forward(self, feat, orders_data, count, neighbors):
+    def _drop_path(self, x: torch.Tensor,
+                   generator: Optional[torch.Generator]) -> torch.Tensor:
+        if self.drop_path <= 0.0 or not self.training:
+            return x
+        if generator is None:
+            raise ValueError("drop path in training mode needs a "
+                             "torch.Generator on the features' device")
+        keep = 1.0 - self.drop_path
+        u = torch.rand((x.shape[0], 1), generator=generator,
+                       device=x.device)
+        return x * (u < keep).to(x.dtype) / keep
+
+    def forward(self, feat, orders_data, count, neighbors,
+                dp_generator: Optional[torch.Generator] = None):
         order, inverse = orders_data[self.order_index]
         if self.enable_cpe:
             x = self.cpe_norm(self.cpe_fc(self.cpe_conv(feat, neighbors)))
             feat = feat + x
-        feat = feat + self.attn(self.norm1(feat), order, inverse, count)
+        x = self.attn(self.norm1(feat), order, inverse, count)
+        feat = feat + self._drop_path(x, dp_generator)
         x = self.mlp_fc2(gelu(self.mlp_fc1(self.norm2(feat))))
-        return feat + x
+        return feat + self._drop_path(x, dp_generator)
 
 
 def pool_clusters(codes: torch.Tensor, order: torch.Tensor, stride: int):
@@ -260,7 +297,11 @@ def pool_clusters(codes: torch.Tensor, order: torch.Tensor, stride: int):
 class SerializedPooling(nn.Module):
     """Linear -> segment max over the clusters -> BN -> GELU; the pooled
     level's coordinates are the cluster means, its grid coordinates and
-    codes those of the cluster heads, shifted."""
+    codes those of the cluster heads, shifted.  The level holds one point
+    per cluster, so it cannot overflow.  The max's gradient is shared
+    equally by the points of a cluster that tie for it, as the gradient of
+    the JAX package's ``segment_max`` is (the -inf start keeps the start
+    value out of the tie)."""
 
     def __init__(self, in_channels: int, out_channels: int, stride: int):
         super().__init__()
@@ -276,8 +317,9 @@ class SerializedPooling(nn.Module):
         o0 = order[0].long()
         x = self.proj(state["feat"])[o0]
         idx = seg[:, None].expand(-1, x.shape[1])
-        pooled = x.new_zeros((n_clusters, x.shape[1])).scatter_reduce_(
-            0, idx, x, reduce="amax", include_self=False)
+        pooled = x.new_full((n_clusters, x.shape[1]), -math.inf
+                            ).scatter_reduce(0, idx, x, reduce="amax",
+                                             include_self=False)
         coord = state["coord"][o0]
         csum = coord.new_zeros((n_clusters, 3)).index_add_(0, seg, coord)
         ccnt = torch.bincount(seg, minlength=n_clusters).to(coord.dtype)
@@ -314,12 +356,48 @@ class SerializedUnpooling(nn.Module):
 # ---------------------------------------------------------------------------
 
 
+def drop_path_rates(cfg: PTv3Config, drop_path: float
+                    ) -> Tuple[List[float], Dict[int, List[float]]]:
+    """The stochastic-depth schedule of the JAX package (upstream
+    models/pt_v3.py:1226-1229): encoder block i of all stages gets
+    ``drop_path * i / max(total - 1, 1)``; decoder stage s gets the slice
+    of the decoder ramp at ``sum(dec_depths[:s])`` reversed, as the JAX
+    package writes it (``ptv3.py:764-779``).  Returns (encoder rates in
+    block order, {decoder stage: rates of its blocks})."""
+    total_e = sum(cfg.enc_depths)
+    enc = [drop_path * i / max(total_e - 1, 1) for i in range(total_e)]
+    total_d = sum(cfg.dec_depths)
+    dec_all = [drop_path * i / max(total_d - 1, 1) for i in range(total_d)]
+    dec = {s: dec_all[sum(cfg.dec_depths[:s]):
+                      sum(cfg.dec_depths[:s + 1])][::-1]
+           for s in range(len(cfg.enc_depths) - 1)}
+    return enc, dec
+
+
+def no_drop_path(module: nn.Module) -> None:
+    """Set the drop-path rate of every ``PTBlock`` under ``module`` to 0,
+    for runs compared draw for draw with another package or device."""
+    for m in module.modules():
+        if isinstance(m, PTBlock):
+            m.drop_path = 0.0
+
+
 class PTv3Single(nn.Module):
     """PTv3 over the valid points of one sample: feat [n, in_channels],
-    coord [n, 3] -> [n, dec_channels[0]]."""
+    coord [n, 3] -> [n, dec_channels[0]].
+
+    ``forward`` takes the drop-path generator (needed in training mode at
+    a positive rate) and an optional shuffle generator: with one, and with
+    ``cfg.shuffle_orders`` and at least two orders, the serialization
+    orders are permuted after serializing and after every pooling, as the
+    JAX package does when given a "shuffle" rng.  After each forward
+    ``overflow`` holds the valid points that fell outside
+    ``dense_nbr_extent``, summed over every neighbour search of the
+    forward (a 0-dim int64 tensor on the features' device)."""
 
     def __init__(self, cfg: PTv3Config, in_channels: int,
-                 grid_size: float = 0.01, serial_depth: int = 10):
+                 grid_size: float = 0.01, serial_depth: int = 10,
+                 drop_path: float = 0.3):
         super().__init__()
         if cfg.enable_rpe:
             raise NotImplementedError(
@@ -334,7 +412,9 @@ class PTv3Single(nn.Module):
         self.serial_depth = serial_depth
         self.out_channels = (cfg.dec_channels[0] if len(cfg.enc_depths) > 1
                              else cfg.enc_channels[0])
+        self.overflow: Optional[torch.Tensor] = None
         n_orders = len(cfg.order)
+        enc_dp, dec_dp = drop_path_rates(cfg, drop_path)
         self.embedding_stem = SubMConv(in_channels, cfg.enc_channels[0], 5)
         self.embedding_norm = MaskedBatchNorm(cfg.enc_channels[0])
         n_stages = len(cfg.enc_depths)
@@ -347,7 +427,7 @@ class PTv3Single(nn.Module):
                 setattr(self, f"enc{s}_block{b}", PTBlock(
                     cfg.enc_channels[s], cfg.enc_n_head[s],
                     cfg.enc_patch_size[s], cfg.mlp_ratio, b % n_orders,
-                    cfg.enable_cpe))
+                    cfg.enable_cpe, enc_dp[sum(cfg.enc_depths[:s]) + b]))
         dec_channels = list(cfg.dec_channels) + [cfg.enc_channels[-1]]
         for s in reversed(range(n_stages - 1)):
             setattr(self, f"dec{s}_up", SerializedUnpooling(
@@ -356,37 +436,56 @@ class PTv3Single(nn.Module):
                 setattr(self, f"dec{s}_block{b}", PTBlock(
                     dec_channels[s], cfg.dec_n_head[s],
                     cfg.dec_patch_size[s], cfg.mlp_ratio, b % n_orders,
-                    cfg.enable_cpe))
+                    cfg.enable_cpe, dec_dp[s][b]))
 
     def _neighbors(self, grid_coord: torch.Tensor, k: int):
         valid = torch.ones(grid_coord.shape[0], dtype=torch.bool,
                            device=grid_coord.device)
-        return subm_neighbors_dense(grid_coord, valid, k,
-                                    self.cfg.dense_nbr_extent)[:2]
+        nb, found, overflow = subm_neighbors_dense(
+            grid_coord, valid, k, self.cfg.dense_nbr_extent)
+        self.overflow = self.overflow + overflow
+        return nb, found
 
-    def _blocks(self, prefix: str, depth: int, state) -> None:
+    def _shuffle(self, state, generator: Optional[torch.Generator]) -> None:
+        n_orders = state["codes"].shape[0]
+        if (not self.cfg.shuffle_orders or n_orders < 2
+                or generator is None):
+            return
+        perm = torch.randperm(n_orders, generator=generator,
+                              device=generator.device).to(
+                                  state["codes"].device)
+        for k in ("codes", "order", "inverse"):
+            state[k] = state[k][perm]
+
+    def _blocks(self, prefix: str, depth: int, state,
+                dp_generator: Optional[torch.Generator]) -> None:
         n = state["feat"].shape[0]
         orders_data = [(state["order"][i], state["inverse"][i])
                        for i in range(len(self.cfg.order))]
         for b in range(depth):
             state["feat"] = getattr(self, f"{prefix}_block{b}")(
-                state["feat"], orders_data, n, state.get("nbrs"))
+                state["feat"], orders_data, n, state.get("nbrs"),
+                dp_generator)
 
-    def forward(self, feat: torch.Tensor, coord: torch.Tensor
+    def forward(self, feat: torch.Tensor, coord: torch.Tensor,
+                dp_generator: Optional[torch.Generator] = None,
+                shuffle_generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
-        _eval_only(self)
         cfg = self.cfg
         n = feat.shape[0]
+        self.overflow = torch.zeros((), dtype=torch.int64,
+                                    device=feat.device)
         if n == 0:
             return feat.new_zeros((0, self.out_channels))
         valid = torch.ones(n, dtype=torch.bool, device=feat.device)
         grid_coord, codes, order, inverse = ser.serialize(
             coord, valid, self.grid_size, tuple(cfg.order),
             self.serial_depth)
+        state = dict(coord=coord, grid_coord=grid_coord, codes=codes,
+                     order=order, inverse=inverse)
+        self._shuffle(state, shuffle_generator)
         x = self.embedding_stem(feat, self._neighbors(grid_coord, 5))
-        x = gelu(self.embedding_norm(x))
-        state = dict(feat=x, coord=coord, grid_coord=grid_coord,
-                     codes=codes, order=order, inverse=inverse)
+        state["feat"] = gelu(self.embedding_norm(x))
         if cfg.enable_cpe:
             state["nbrs"] = self._neighbors(grid_coord, 3)
         levels: List[Tuple[dict, torch.Tensor]] = []
@@ -396,43 +495,65 @@ class PTv3Single(nn.Module):
                 pooled, cluster = getattr(self, f"enc{s}_down")(state)
                 levels.append((state, cluster))
                 state = pooled
+                self._shuffle(state, shuffle_generator)
                 if cfg.enable_cpe:
                     state["nbrs"] = self._neighbors(state["grid_coord"], 3)
-            self._blocks(f"enc{s}", cfg.enc_depths[s], state)
+            self._blocks(f"enc{s}", cfg.enc_depths[s], state, dp_generator)
         for s in reversed(range(n_stages - 1)):
             parent, cluster = levels[s]
             up = getattr(self, f"dec{s}_up")(state["feat"], parent["feat"],
                                              cluster)
             state = dict(parent)
             state["feat"] = up
-            self._blocks(f"dec{s}", cfg.dec_depths[s], state)
+            self._blocks(f"dec{s}", cfg.dec_depths[s], state, dp_generator)
         return state["feat"]
 
 
 class PointTransformerV3(nn.Module):
     """Batched wrapper: feat [B, N, C], coord [B, N, 3], valid [B, N] ->
     [B, N, out_channels].  Each sample runs on its valid points alone;
-    invalid rows of the output are 0."""
+    invalid rows of the output are 0.  ``overflow`` holds the samples'
+    dense-neighbour overflow, summed, after each forward.
+
+    In training mode the batch statistics of ``MaskedBatchNorm`` would
+    have to span every sample's valid points, as the JAX package's
+    ``nn.vmap`` axis makes them; running one sample at a time cannot, so
+    training mode takes B = 1 and raises ``NotImplementedError`` above."""
 
     def __init__(self, cfg: PTv3Config, in_channels: int,
-                 grid_size: float = 0.01, serial_depth: int = 10):
+                 grid_size: float = 0.01, serial_depth: int = 10,
+                 drop_path: float = 0.3):
         super().__init__()
-        self.net = PTv3Single(cfg, in_channels, grid_size, serial_depth)
+        self.net = PTv3Single(cfg, in_channels, grid_size, serial_depth,
+                              drop_path)
+        self.overflow: Optional[torch.Tensor] = None
 
     @property
     def out_channels(self) -> int:
         return self.net.out_channels
 
     def forward(self, feat: torch.Tensor, coord: torch.Tensor,
-                valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                valid: Optional[torch.Tensor] = None,
+                dp_generator: Optional[torch.Generator] = None,
+                shuffle_generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         B, N = feat.shape[:2]
+        if self.training and B > 1:
+            raise NotImplementedError(
+                "PTv3 in training mode takes one sample at a time in the "
+                "PyTorch port: its BatchNorm statistics cannot span the "
+                f"samples of a batch (got B={B})")
         outs = []
+        overflow = torch.zeros((), dtype=torch.int64, device=feat.device)
         for b in range(B):
+            gens = (dp_generator, shuffle_generator)
             if valid is None or bool(valid[b].all()):
-                outs.append(self.net(feat[b], coord[b]))
-                continue
-            keep = torch.nonzero(valid[b]).squeeze(1)
-            out = feat.new_zeros((N, self.out_channels))
-            out[keep] = self.net(feat[b][keep], coord[b][keep])
-            outs.append(out)
+                outs.append(self.net(feat[b], coord[b], *gens))
+            else:
+                keep = torch.nonzero(valid[b]).squeeze(1)
+                out = feat.new_zeros((N, self.out_channels))
+                out[keep] = self.net(feat[b][keep], coord[b][keep], *gens)
+                outs.append(out)
+            overflow = overflow + self.net.overflow
+        self.overflow = overflow
         return torch.stack(outs)

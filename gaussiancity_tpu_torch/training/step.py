@@ -17,6 +17,15 @@ One step with a shared render, as in the JAX package:
 Spectral-norm state is updated on all three D applications.  Adam is
 ``torch.optim.Adam``, whose update equals optax's ``adam``.
 
+``train_step`` puts the generator in training mode (PTv3's BatchNorm on
+batch statistics, folded into the running averages once per step by the
+one render; drop path on) and ``eval_step`` in eval mode, as the JAX
+steps pass ``train=True`` / ``False``.  Every random draw comes from a
+``torch.Generator`` on the trainer's device: per step the trainer derives
+one for the style-code table and one for the drop-path masks from
+(seed, step), as the JAX step splits ``rng_z, rng_dp`` from its key; a
+generator the caller passes serves both draws instead.
+
 Batch layout (batch size 1, tensors on the trainer's device, NHWC images
 as in the JAX package):
 
@@ -68,6 +77,7 @@ class Trainer:
 
     def __init__(self, cfg: Config, device=None, seed: int = 0):
         self.cfg = cfg
+        self.seed = seed
         ds, tr = cfg.dataset, cfg.train
         if tr.compute_dtype != "float32":
             # the JAX Trainer builds D and the perceptual loss in bf16 for
@@ -139,7 +149,16 @@ class Trainer:
         d = self.cfg.train.discriminator
         return d.lr * min(1.0, k / d.n_warmup_iters)
 
-    def _point_features(self, batch, rng: Optional[torch.Generator]):
+    def step_generators(self, step: int
+                        ) -> Tuple[torch.Generator, torch.Generator]:
+        """The generators of step ``step``'s z table and drop-path masks,
+        on the trainer's device, seeded from (seed, step)."""
+        seeds = np.random.SeedSequence([self.seed, step]).generate_state(
+            2, dtype=np.uint64)
+        return tuple(torch.Generator(device=self.device).manual_seed(int(s))
+                     for s in seeds)
+
+    def _point_features(self, batch, rng: torch.Generator):
         ds = self.cfg.dataset
         pts = batch["pts"]
         abs_xyz = pts[..., 0:3]
@@ -159,15 +178,20 @@ class Trainer:
                                               ds.proj_size),
             pts_mask=batch.get("pts_mask"))
 
-    def _render_fake(self, batch, feats, crop_size=None
+    def _render_fake(self, batch, feats, crop_size=None,
+                     dp_generator: Optional[torch.Generator] = None
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Generator -> 14-channel Gaussians -> rasterize the crop window
-        -> flips.  Returns ([1, Hc, Wc, 3] NHWC, rasterizer counters)."""
+        -> flips.  Returns ([1, Hc, Wc, 3] NHWC, the rasterizer counters
+        and PTv3's overflow count, 0 without PTv3)."""
         t0 = self._now()
         attrs = self.generator(
             feats["proj_uv"], feats["rel_xyz"], None, feats["onehots"],
             feats["z"], batch.get("proj_hf"), batch.get("proj_seg"),
-            feats["pts_mask"])
+            feats["pts_mask"], dp_generator=dp_generator)
+        overflow = (self.generator.pt_net.overflow
+                    if self.cfg.network.ptv3.enabled else
+                    torch.zeros((), dtype=torch.int64, device=self.device))
         gs_pts = helpers.get_gaussian_points(feats["abs_xyz"],
                                              feats["scales3"], attrs)
         if gs_pts.shape[0] != 1:
@@ -194,7 +218,8 @@ class Trainer:
             img = img.flip(-2)
         diag = {"RasterDroppedPairs": out.n_dropped_pairs,
                 "RasterTruncated": out.n_truncated,
-                "RasterGradTruncated": out.n_grad_truncated}
+                "RasterGradTruncated": out.n_grad_truncated,
+                "PTv3PoolOverflow": overflow}
         self._record("render", t0)
         return img.permute(1, 2, 0)[None], diag
 
@@ -207,11 +232,16 @@ class Trainer:
                    ) -> Dict[str, torch.Tensor]:
         """One D + G update.  Returns the metrics as 0-dim tensors on the
         device.  After the step, each parameter's ``.grad`` holds this
-        step's gradient (D's from the D loss only)."""
+        step's gradient (D's from the D loss only).  ``rng``, when given,
+        serves the z table and then the drop-path masks; otherwise the
+        step's own generators do (``step_generators``)."""
         tr = self.cfg.train
-        feats = self._point_features(batch, rng)
+        rng_z, rng_dp = ((rng, rng) if rng is not None
+                         else self.step_generators(self.step))
+        self.generator.train()
+        feats = self._point_features(batch, rng_z)
         gan_w = batch["msk"][:, ::4, ::4, :]  # nearest 0.25x
-        fake, metrics = self._render_fake(batch, feats)
+        fake, metrics = self._render_fake(batch, feats, dp_generator=rng_dp)
         t0 = self._now()
         if self.use_disc:
             D = self.discriminator
@@ -260,7 +290,11 @@ class Trainer:
     def eval_step(self, batch: Dict[str, torch.Tensor],
                   rng: Optional[torch.Generator] = None
                   ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-        """Render the test crop and its masked L1: (metrics, fake NHWC)."""
+        """Render the test crop in eval mode (PTv3 on its running
+        statistics, no drop path) and its masked L1: (metrics, fake NHWC).
+        The z table comes from ``rng`` or from the step's generator."""
+        self.generator.eval()
+        rng = rng if rng is not None else self.step_generators(self.step)[0]
         feats = self._point_features(batch, rng)
         fake, diag = self._render_fake(batch, feats,
                                        crop_size=self.test_crop_size)

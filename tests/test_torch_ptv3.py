@@ -22,18 +22,13 @@ from gaussiancity_tpu_torch import interop
 from gaussiancity_tpu_torch.config import PTv3Config
 from gaussiancity_tpu_torch.models import ptv3
 from gaussiancity_tpu_torch.ops import serialization as ser
+from gaussiancity_tpu_torch.testing import TINY_PTV3 as TINY
 
 # float32 matmuls, softmaxes and norms taken in another order than XLA's
 ATOL, RTOL = 1e-5, 1e-4
 
 ORDERS = ("cord", "z", "z-trans", "hilbert", "hilbert-trans")
 
-# the small PTv3 of tests/test_ptv3.py::tiny_ptv3_cfg
-TINY = dict(order=("cord",), stride=(2, 2), enc_depths=(1, 1, 1),
-            enc_channels=(8, 16, 32), enc_n_head=(1, 2, 4),
-            enc_patch_size=(32, 32, 32), dec_depths=(1, 1),
-            dec_channels=(8, 16), dec_n_head=(1, 2),
-            dec_patch_size=(32, 32), mlp_ratio=2.0)
 
 
 def _np_tree(tree):
@@ -258,12 +253,117 @@ def test_ptv3_matches_jax_at_two_paddings(tiny_ptv3, n_pad):
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
 
 
+def test_ptv3_train_mode_forward_backward_match_jax(tiny_ptv3):
+    """Training mode, drop path off: the output, the running statistics
+    folded from the batch and the input gradient, against the JAX
+    package's ``apply(..., train=True, mutable=["batch_stats"])`` on a
+    padded slab."""
+    jmodel, variables, feat, coord, _ = tiny_ptv3
+    n, n_pad = len(feat), 10
+    rng = np.random.default_rng(11)
+    pfeat = np.concatenate([feat, rng.normal(size=(n_pad, feat.shape[1]))]
+                           ).astype(np.float32)
+    pcoord = np.concatenate([coord, rng.uniform(-1, 1, (n_pad, 3))]
+                            ).astype(np.float32)
+    valid = np.arange(n + n_pad) < n
+    ct = rng.normal(size=(n, TINY["dec_channels"][0])).astype(np.float32)
+    jmodel = jptv3.PointTransformerV3(cfg=JPTv3Config(**TINY),
+                                      in_channels=feat.shape[1],
+                                      drop_path=0.0)
+
+    def fwd(x):
+        return jmodel.apply(variables, x, jnp.asarray(pcoord)[None],
+                            jnp.asarray(valid)[None], True,
+                            mutable=["batch_stats"])
+
+    @jax.jit
+    def run(x):
+        (out, vs), vjp = jax.vjp(fwd, x)
+        cot = jnp.zeros_like(out).at[0, :n].set(jnp.asarray(ct))
+        stats_cot = jax.tree_util.tree_map(jnp.zeros_like, vs)
+        return out, vs, vjp((cot, stats_cot))[0]
+
+    want, want_vs, want_grad = _np_tree(run(jnp.asarray(pfeat)[None]))
+    model = _port(ptv3.PointTransformerV3(PTv3Config(**TINY),
+                                          feat.shape[1], drop_path=0.0),
+                  variables).train()
+    x = torch.from_numpy(feat)[None].requires_grad_(True)
+    got = model(x, torch.from_numpy(coord)[None])
+    (got[0] * torch.from_numpy(ct)).sum().backward()
+    np.testing.assert_allclose(got[0].detach().numpy(), want[0, :n],
+                               atol=ATOL, rtol=RTOL)
+    g = want_grad[0, :n]
+    assert np.abs(g).max() > 1e-3
+    np.testing.assert_allclose(x.grad[0].numpy(), g, rtol=0,
+                               atol=RTOL * np.abs(g).max())
+    new_stats = interop.ptv3_state_from_flax(want_vs["batch_stats"])
+    old_stats = interop.ptv3_state_from_flax(variables["batch_stats"])
+    state = model.state_dict()
+    assert len(new_stats) > 10
+    for k, w in new_stats.items():
+        np.testing.assert_allclose(state[k].numpy(), w.numpy(), atol=ATOL,
+                                   rtol=RTOL, err_msg=k)
+        assert not torch.equal(w, old_stats[k]), k
+
+
+def test_pooling_tie_gradient_matches_jax_segment_max():
+    """A cluster whose points have equal features shares the max's
+    gradient equally among them, as the JAX package's ``segment_max``
+    does; so do features that tie at 0."""
+    rng = np.random.default_rng(12)
+    coord, valid = _points(13, 64)
+    N, C, F = len(coord), 4, 6
+    feat = rng.normal(size=(N, C)).astype(np.float32)
+    g, codes, order, inverse = jser.serialize(
+        jnp.asarray(coord), jnp.asarray(valid), 0.01, ("cord",), 10)
+    # the co-voxel duplicates of _points share a cluster: equal features,
+    # some of them 0 (after a projection without bias: a tie at 0)
+    feat[:4] = 0.0
+    feat[N // 4:N // 4 + N // 8] = feat[:N // 8]
+    jpool = jptv3.SerializedPooling(F, 2)
+    pargs = (jnp.asarray(coord), g, codes, order, jnp.asarray(valid),
+             jnp.int32(N), 0.01, ("cord",), 10)
+    pvars = _np_tree(jpool.init(jax.random.PRNGKey(4), jnp.asarray(feat),
+                                *pargs, train=False))
+    pvars["params"]["proj"]["bias"] = np.zeros(F, np.float32)
+    ct = rng.normal(size=(N, F)).astype(np.float32)
+
+    @jax.jit
+    def run(x):
+        def fwd(x):
+            out, _ = jpool.apply(pvars, x, *pargs, train=True,
+                                 mutable=["batch_stats"])
+            return out["feat"], out["count"]
+        (out, count), vjp = jax.vjp(fwd, x)
+        mask = (jnp.arange(N) < count)[:, None]
+        return count, vjp((jnp.where(mask, jnp.asarray(ct), 0.0),
+                           jnp.zeros_like(count)))[0]
+
+    count, want = run(jnp.asarray(feat))
+    nc = int(count)
+    pool = _port(ptv3.SerializedPooling(C, F, 2), pvars).train()
+    t = {k: torch.from_numpy(np.array(v)) for k, v in
+         dict(coord=coord, grid_coord=g, codes=codes, order=order,
+              inverse=inverse).items()}
+    t["feat"] = torch.from_numpy(feat).requires_grad_(True)
+    got, _ = pool(t)
+    assert got["feat"].shape[0] == nc < N
+    (got["feat"] * torch.from_numpy(ct[:nc])).sum().backward()
+    want = np.asarray(want)
+    np.testing.assert_allclose(t["feat"].grad.numpy(), want, rtol=0,
+                               atol=RTOL * np.abs(want).max())
+    tied = feat[:N // 8] == feat[N // 4:N // 4 + N // 8]
+    assert tied.all() and np.abs(want[:N // 8]).max() > 0
+
+
 def test_ptv3_is_eval_only_and_later_options_raise():
+    """Kept by name: training mode now runs, but takes one sample at a
+    time (B > 1 raises); enable_rpe and the sorted-merge search raise."""
     cfg = PTv3Config(**TINY)
     model = ptv3.PointTransformerV3(cfg, 12)
     x = torch.zeros((1, 40, 12))
-    with pytest.raises(NotImplementedError):
-        model(x, torch.rand((1, 40, 3)))  # training mode
+    with pytest.raises(NotImplementedError, match="one sample"):
+        model(torch.zeros((2, 40, 12)), torch.rand((2, 40, 3)))  # training
     for change in (dict(enable_rpe=True), dict(dense_nbr_extent=0)):
         with pytest.raises(NotImplementedError):
             ptv3.PointTransformerV3(cfg.replace(**change), 12)
