@@ -68,7 +68,27 @@ Phases, each of which fails the run if it fails:
 15. run the training loop ``train()`` on the card over the synthetic
     dataset with a tiny BLDG config: one epoch with validation and a
     checkpoint, then a resume from it for the second; steps per second;
-16. drive the row-gather probe (K4) at its shape, count set to 0 just
+16. generate a dataset city on the card: the synthetic city's maps
+    written as projection PNGs, 8 orbit poses, ``generate_city`` at the
+    JAX default 640 x 640 x 256 volume (V1 once a view, the split of a
+    view's time), view 0 again on the CPU by the plain path (its maps,
+    points and instance map bit-equal to the card's files), footage JPEGs
+    and one ``GoogleEarthDataset`` item read back; V1 timed on view 0;
+17. run the command line (``python3 -m gaussiancity_tpu_torch``) as
+    subprocesses on the card: train mode, 4 steps of the tiny REST widths
+    on that city (a checkpoint, finite losses, overflow counters 0), then
+    ``--test`` on its checkpoint;
+18. run the command line's ``--inference`` from the checkpoints of the
+    full-width REST and BLDG trainers of phases 9 and 14 over that city,
+    8 frames: the video and the jpgs written, the jpgs byte-equal to an
+    in-process ``InferencePipeline`` from ``get_models`` of the same
+    directories (same poses, style table and budgets), K1, V1 and G1 on
+    every in-process frame; the CLI's time split and peak memory; then
+    K1, V1 and G1 held against their plain versions on the arguments the
+    first in-process frame gives them.  Every
+    file of phases 16-18 lives under ``output/chip_smoke_cli``, removed
+    at the end;
+19. drive the row-gather probe (K4) at its shape, count set to 0 just
     before, and hold K4 against its plain version (bit-equal, and on a
     repeat).
 
@@ -81,9 +101,10 @@ JSON line (launches on the timed passes, time, plain time, library time,
 bound, max error; K1 and K2 also the pairs their bounds count and the
 bound over every tested pair as ``tested_bound_ms``; K3 and G1 also per
 use; K1, K2 and K3 also their use on the BLDG step, under "uses" as
-"bldg_step"; G1b also the backward's launches per step and the A/B of
-phase 9),
-and as its last line
+"bldg_step"; V1 also its use on a generated dataset view, under "uses"
+as "dataset_view"; K1, V1 and G1 also their use on the CLI's inference
+frame, under "uses" as "cli_frame"; G1b also the backward's launches
+per step and the A/B of phase 9), and as its last line
 ``{"ok": true, "device": {...}}``.
 
 Run from the repository root: ``python3 chip_smoke.py``
@@ -94,7 +115,12 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import faulthandler
 import json
+import os
+import pickle
+import shutil
 import subprocess
 import sys
 import time
@@ -435,10 +461,30 @@ def phase_raycast(pipe, projections, poses) -> dict:
         torch.tensor([pose[k] for k in ("tx", "ty", "tz")], **f32),
         torch.tensor([pose[k] for k in ("qx", "qy", "qz", "qw")], **f32),
         pipe._offsets)
-    view = (vol, rays, float(K[0, 0]), (float(K[1, 2]), float(K[0, 2])),
-            (H, W))
+    entry = v1_measure("frame view", vol, occ, rays, float(K[0, 0]),
+                       (float(K[1, 2]), float(K[0, 2])), (H, W))
+    entry["pack_occupancy_ms"] = pack_ms
+    return {"name": "raycast", "route": "cuda",
+            "source": "gaussiancity_tpu_torch/csrc/raycast.cu",
+            "replaces": "gaussiancity_tpu/ops/visibility.py:154 "
+                        "(ray_voxel_intersection, an XLA while_loop; no "
+                        "Pallas kernel)", **entry}
+
+
+def v1_measure(what: str, vol, occ, rays, cam_f: float, cam_c, img_dims
+               ) -> dict:
+    """V1 against its plain version on one view (voxel ids and depths
+    bit-equal), its time and the plain version's on the card, and its
+    bound: the cells and the bytes the walk needs, and the steps and jumps
+    V1's design takes on this view (``raycast_work``)."""
+    import torch
+
+    from gaussiancity_tpu_torch.ops import visibility as vis
+
+    H, W = img_dims
+    view = (vol, rays, cam_f, cam_c, (H, W))
     args, tables = view + (occ.ztop,), view + (occ,)
-    log(f"V1 inputs: volume {tuple(vol.shape)} "
+    log(f"V1 inputs ({what}): volume {tuple(vol.shape)} "
         f"({int((vol != 0).sum())} occupied) rays {H}x{W} "
         f"ztop={occ.ztop}")
     got = vis.raycast(*tables)
@@ -448,13 +494,13 @@ def phase_raycast(pipe, projections, poses) -> dict:
     both = (got[0] == want[0]) & (want[0] != 0)
     err = float((got[1][both] - want[1][both]).abs().max())
     hits = float((want[0] != 0).float().mean())
-    log(f"V1 vs plain: voxel ids equal {share:.6f}, depth max|d| on equal "
-        f"hits {err:.3e}, hit share {hits:.4f}")
+    log(f"V1 vs plain ({what}): voxel ids equal {share:.6f}, depth max|d| "
+        f"on equal hits {err:.3e}, hit share {hits:.4f}")
     check(torch.equal(got[0], want[0]),
-          "V1 voxel ids differ from the plain version")
+          f"V1 voxel ids differ from the plain version ({what})")
     check(torch.equal(got[1], want[1]),
-          "V1 depths are not bit-equal to the plain version")
-    check(hits > 0.5, "V1 test view sees too little of the city")
+          f"V1 depths are not bit-equal to the plain version ({what})")
+    check(hits > 0.5, f"V1 test view sees too little of the city ({what})")
     ms = cuda_time_ms(lambda: vis.raycast(*tables))
     plain_ms = cuda_time_ms(lambda: vis.raycast_plain(*args), iters=2,
                             warmup=1)
@@ -462,37 +508,31 @@ def phase_raycast(pipe, projections, poses) -> dict:
     n_bytes = n_cells * 4 + 12 * 4 + H * W * 8
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_steps * RAYCAST_OPS_PER_STEP / FP32_FLOP_PER_S * 1e3
-    log(f"V1: {ms:.4f} ms, plain {plain_ms:.2f} ms; the walk's bound: "
-        f"{n_bytes} B ({n_cells} cells read) -> {t_bytes:.5f} ms, {n_steps} "
-        f"DDA steps -> {t_ops:.5f} ms")
+    log(f"V1 ({what}): {ms:.4f} ms, plain {plain_ms:.2f} ms; the walk's "
+        f"bound: {n_bytes} B ({n_cells} cells read) -> {t_bytes:.5f} ms, "
+        f"{n_steps} DDA steps -> {t_ops:.5f} ms")
     # the work the function needs: the cells this design still steps
     # through and the empty regions it jumps over, counted by the kernel's
     # counting variant on this view
     again = vis.raycast_work(*tables)
     torch.cuda.synchronize()
     check(torch.equal(again[0], want[0]) and torch.equal(again[1], want[1]),
-          "V1 with its work count differs from the plain version")
+          f"V1 with its work count differs from the plain version ({what})")
     work = again[2]
     n_design, n_jumps = int(work[..., 0].sum()), int(work[..., 1].sum())
     check(0 < n_design <= n_steps, "V1 stepped more cells than the walk")
     t_design = ((n_design * RAYCAST_OPS_PER_STEP
                  + n_jumps * RAYCAST_OPS_PER_JUMP) / FP32_FLOP_PER_S * 1e3)
-    log(f"V1 design work: {n_design} steps ({n_design / n_steps:.4f} of the "
-        f"walk's) and {n_jumps} jumps over empty regions -> "
+    log(f"V1 design work ({what}): {n_design} steps ({n_design / n_steps:.4f}"
+        f" of the walk's) and {n_jumps} jumps over empty regions -> "
         f"{t_design:.5f} ms; the kernels line's bound is "
         f"{max(t_bytes, t_design):.5f} ms (the walk's under walk_bound_ms)")
-    return {"name": "raycast", "route": "cuda",
-            "source": "gaussiancity_tpu_torch/csrc/raycast.cu",
-            "replaces": "gaussiancity_tpu/ops/visibility.py:154 "
-                        "(ray_voxel_intersection, an XLA while_loop; no "
-                        "Pallas kernel)",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_design),
             "bound_by": "bytes" if t_bytes >= t_design else "operations",
             "library_ms": None, "walk_steps": n_steps,
             "design_steps": n_design, "design_jumps": n_jumps,
-            "walk_bound_ms": max(t_bytes, t_ops),
-            "pack_occupancy_ms": pack_ms}
+            "walk_bound_ms": max(t_bytes, t_ops)}
 
 
 def small_config():
@@ -686,32 +726,43 @@ def rest_train_config():
     return cfg.replace(train=cfg.train.replace(allow_random_vgg=True))
 
 
+@contextlib.contextmanager
+def wrapped_calls(targets, hook):
+    """Within the block, each (module, name) of ``targets`` is replaced by
+    a wrapper that returns ``hook(name, fn, args, kwargs)``, ``fn`` the
+    original.  A wrapper counts the launches made under its name: the
+    real counts see none of these."""
+    originals = [(mod, name, getattr(mod, name)) for mod, name in targets]
+
+    def wrap(name, fn):
+        def call(*args, **kwargs):
+            return hook(name, fn, args, kwargs)
+        call.launches = 0
+        return call
+
+    for mod, name, fn in originals:
+        setattr(mod, name, wrap(name, fn))
+    try:
+        yield
+    finally:
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+
+
 def capture_calls(targets, fn) -> dict:
     """Run ``fn`` with each (module, name) of ``targets`` wrapped to keep
-    the (detached) arguments of every call, by name."""
+    the (detached) positional arguments of every call, by name."""
     import torch
 
     captured = {name: [] for _, name in targets}
-    originals = [(mod, name, getattr(mod, name)) for mod, name in targets]
 
-    def wrap(name, fn_orig):
-        def rec(*args):
-            captured[name].append(tuple(
-                a.detach() if isinstance(a, torch.Tensor) else a
-                for a in args))
-            return fn_orig(*args)
-        # a wrapper counts the launches made under its name: the real
-        # counts see none of these
-        rec.launches = 0
-        return rec
+    def keep(name, fn_orig, args, kwargs):
+        captured[name].append(tuple(
+            a.detach() if isinstance(a, torch.Tensor) else a for a in args))
+        return fn_orig(*args, **kwargs)
 
-    for mod, name, fn_orig in originals:
-        setattr(mod, name, wrap(name, fn_orig))
-    try:
+    with wrapped_calls(targets, keep):
         fn()
-    finally:
-        for mod, name, fn_orig in originals:
-            setattr(mod, name, fn_orig)
     return captured
 
 
@@ -1052,18 +1103,21 @@ def phase_g1(use: str, args) -> dict:
                 t_ops=t_ops, rows=n_rows)
 
 
+def g1_use(r: dict) -> dict:
+    """One ``phase_g1`` result as a use entry of G1's line."""
+    return {"N": r["N"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": max(r["t_bytes"], r["t_ops"]),
+            "bound_by": ("bytes" if r["t_bytes"] >= r["t_ops"]
+                         else "operations"),
+            "max_abs_err": r["err"], "distinct_rows": r["rows"]}
+
+
 def g1_entry(results: dict) -> dict:
     """G1's line: its uses summed (ms, plain, bound), the worst error,
     and each use under "uses" (its launches are filled in by ``main``)."""
     tot = {k: sum(r[k] for r in results.values())
            for k in ("ms", "plain_ms", "t_bytes", "t_ops")}
-    uses = {}
-    for use, r in results.items():
-        uses[use] = {"N": r["N"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-                     "bound_ms": max(r["t_bytes"], r["t_ops"]),
-                     "bound_by": ("bytes" if r["t_bytes"] >= r["t_ops"]
-                                  else "operations"),
-                     "max_abs_err": r["err"], "distinct_rows": r["rows"]}
+    uses = {use: g1_use(r) for use, r in results.items()}
     log("G1 line: its three uses summed (ms, plain, bound), each use under "
         "\"uses\"")
     return {"name": "hash_encode_fwd", "route": "cuda",
@@ -1625,13 +1679,15 @@ def building_batch(cfg, projections, centers, device, seed: int = 0):
     from gaussiancity_tpu_torch.data.transforms import _normalize_rel_cords
     from gaussiancity_tpu_torch.inference.pipeline import (
         get_quat_from_look_at)
+    from gaussiancity_tpu_torch.data.dataset_generator import (
+        class_scale_table)
     from gaussiancity_tpu_torch.ops import extrusion as ext
 
     ds = cfg.dataset
     r = projections["REST"]
     pts = ext.extrude_points_np(r["INS"], r["TD_HF"], r["BU_HF"], r["PTS"],
                                 ext.SegInsRelation(),
-                                ext.GOOGLE_EARTH_CLASS_SCALES)
+                                class_scale_table("GOOGLE_EARTH"))
     ids = pts[:, 4].astype(np.int64)
     bldg = np.where(ids >= 100, ids - (ids - 100) % 2, -1)
     uniq, counts = np.unique(bldg[bldg >= 0], return_counts=True)
@@ -1861,8 +1917,6 @@ def phase_train_loop(device, n_items: int = 4):
     that checkpoint for the second epoch; steps per second of each call
     (set-up, validation and checkpoint included)."""
     import functools
-    import os
-    import shutil
 
     from gaussiancity_tpu_torch.data import datasets
     from gaussiancity_tpu_torch.training import checkpoint
@@ -1917,18 +1971,402 @@ def phase_train_loop(device, n_items: int = 4):
         shutil.rmtree(out_dir, ignore_errors=True)
 
 
+# phases 16-18: the user's entry points.  Everything they write lives
+# under output/chip_smoke_cli (removed at the end of the run).
+DATASET_VIEWS = 8
+DATASET_VOL = (640, 640, 256)  # the JAX package's default vol_shape
+CLI_FRAMES = 8
+CLI_TIMEOUT_S = 600
+HANG_S = 1100  # the whole run's limit, the build included
+
+
+def cli_root() -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "output", "chip_smoke_cli")
+
+
+@contextlib.contextmanager
+def timed_calls(targets):
+    """Within the block, each (module, name) of ``targets`` is wrapped to
+    keep its wall time per call (the device synchronised before and
+    after), by name."""
+    import torch
+
+    times = {name: [] for _, name in targets}
+
+    def timed(name, fn, args, kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    with wrapped_calls(targets, timed):
+        yield times
+
+
+def cli_config(root: str, out_dir: str):
+    """The tiny REST widths of phase 8 on the generated city: its 960x540
+    views and projection window (2048 pixels), the loop phase's train
+    settings, 32x32 tiles."""
+    from gaussiancity_tpu_torch.config import (DatasetConfig,
+                                               RasterizerConfig, TestConfig)
+    from gaussiancity_tpu_torch.data.dataset_generator import CONSTANTS
+
+    cfg = tiny_train_config()
+    return cfg.replace(
+        exp_name="chip_smoke_cli", output_dir=out_dir,
+        dataset=DatasetConfig(
+            dir=root, n_cities=1, n_views=DATASET_VIEWS,
+            train_crop_size=(256, 128), test_crop_size=(256, 128),
+            train_min_pixels=4,
+            proj_size=CONSTANTS["GOOGLE_EARTH"]["PROJECTION_SIZE"],
+            map_size=0),
+        rasterizer=RasterizerConfig(),
+        train=cfg.train.replace(n_epochs=1, max_points=256, log_freq=2,
+                                ckpt_save_freq=1, n_workers=2,
+                                prefetch_batches=2),
+        test=TestConfig(test_freq=1))
+
+
+def phase_dataset_generation(projections, device="cuda",
+                             vol_shape=DATASET_VOL) -> Tuple[str, dict]:
+    """``generate_city`` on the card over the synthetic city's maps (as
+    PNGs) from 8 orbit poses at the JAX default volume: V1 once a view,
+    the split of a view's time, view 0 bit-equal to the CPU's plain path,
+    the files read back by ``GoogleEarthDataset``; V1 timed on view 0.
+    Returns (the city directory, V1's ``dataset_view`` use)."""
+    import torch
+    from PIL import Image
+
+    from gaussiancity_tpu_torch.data import dataset_generator as dg
+    from gaussiancity_tpu_torch.data.datasets import get_dataset
+    from gaussiancity_tpu_torch.inference.pipeline import (
+        get_orbit_camera_poses)
+    from gaussiancity_tpu_torch.ops import visibility as vis
+
+    root = os.path.join(cli_root(), "data")
+    city = os.path.join(root, "City")
+    dg.dump_projections(projections, os.path.join(city, "Projection"))
+    # the frame phases' orbit (radius 220, altitude 260 over 512 pixels),
+    # scaled to the map
+    P = projections["REST"]["SEG"].shape[0]
+    poses = get_orbit_camera_poses(P, n_points=DATASET_VIEWS,
+                                   radius=220 * P // 512,
+                                   altitude=260 * P // 512)
+    dg.save_camera_poses(os.path.join(city, "CameraPoses.csv"), poses)
+    targets = [(dg, "load_projections"), (dg, "get_centers_from_projections"),
+               (dg, "generate_view"), (dg, "get_local_projections"),
+               (dg, "get_points_from_projections"),
+               (vis, "points_to_volume"), (vis, "visible_from_volume")]
+    vis.raycast.launches = 0
+    with timed_calls(targets) as t:
+        t0 = time.perf_counter()
+        dg.generate_city("GOOGLE_EARTH", city, vol_shape=vol_shape,
+                         device=device)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    launches = vis.raycast.launches
+    n = DATASET_VIEWS
+    check(launches == n, f"generate_city launched V1 {launches} times for "
+          f"{n} views")
+    check(all(len(t[name]) == n for _, name in targets[2:]),
+          "generate_city did not run every stage once a view")
+    stages = {"extrude (host)": t["get_points_from_projections"],
+              "local projections (host)": t["get_local_projections"],
+              "volume": t["points_to_volume"],
+              "raycast (occupancy tables, V1, instance map)":
+                  t["visible_from_volume"]}
+    reindex = [g - sum(col) for g, col in zip(t["generate_view"],
+                                              zip(*stages.values()))]
+    write = (wall - sum(t["generate_view"]) - t["load_projections"][0]
+             - t["get_centers_from_projections"][0]) / n
+    log(f"dataset generation: {n} views of 960x540 over a "
+        f"{vol_shape} volume in {wall / 1e3:.2f} s "
+        f"({wall / n:.1f} ms a view); projections read "
+        f"{t['load_projections'][0]:.1f} ms, centres "
+        f"{t['get_centers_from_projections'][0]:.1f} ms; V1 launches {n}")
+    for name, ms in list(stages.items()) + [
+            ("reindex, masks (host)", reindex)]:
+        log(f"  stage {name}: " + " ".join(f"{m:.1f}" for m in ms)
+            + f"   median {float(np.median(ms)):.2f} ms")
+    log(f"  stage write (png + pkl, host): {write:.2f} ms a view (mean)")
+
+    # view 0 again, on the CPU by the plain path: the same files
+    projections_png = dg.load_projections(os.path.join(city, "Projection"))
+    p0 = poses[0]
+    t0 = time.perf_counter()
+    data, ins_map = dg.generate_view(
+        "GOOGLE_EARTH", projections_png,
+        np.array([p0["tx"], p0["ty"], p0["tz"]]),
+        np.array([p0["qx"], p0["qy"], p0["qz"], p0["qw"]]), vol_shape,
+        device="cpu")
+    cpu_s = time.perf_counter() - t0
+    with open(os.path.join(city, "Points", "0000.pkl"), "rb") as f:
+        card = pickle.load(f)
+    with Image.open(os.path.join(city, "InstanceImage", "0000.png")) as img:
+        card_ins = np.array(img)
+    check(card.keys() == data.keys() == {"prj", "vpm", "msk", "pts"}
+          and card["prj"].keys() == data["prj"].keys(),
+          "the view's Points pkl has another schema")
+    for key in ("vpm", "msk", "pts"):
+        check(card[key].dtype == data[key].dtype
+              and np.array_equal(card[key], data[key]),
+              f"view 0's {key} on the card differs from the CPU's")
+    for key, arr in data["prj"].items():
+        check(np.array_equal(card["prj"][key], arr),
+              f"view 0's prj {key} on the card differs from the CPU's")
+    check(np.array_equal(card_ins, ins_map.astype(np.uint16)),
+          "view 0's instance map on the card differs from the CPU's")
+    log(f"dataset view 0 on the CPU (plain path) in {cpu_s:.1f} s: vpm, msk,"
+        f" pts ({len(data['pts'])} visible points), prj and the instance map"
+        " bit-equal to the card's files")
+
+    # the footage a city needs for training, then one item of the val
+    # split read from the files
+    rng = np.random.default_rng(0)
+    os.makedirs(os.path.join(city, "footage"))
+    for i in range(n):
+        Image.fromarray(rng.integers(0, 255, (540, 960, 3), np.uint8)).save(
+            os.path.join(city, "footage", f"City_{i:02d}.jpeg"))
+    cfg = cli_config(root, os.path.join(cli_root(), "out"))
+    ds = get_dataset(cfg, "GOOGLE_EARTH", "val")
+    item = ds[0]
+    Wc, Hc = cfg.dataset.test_crop_size
+    check(len(ds) == 1 and item["pts"].shape == (cfg.train.max_points, 9)
+          and item["rgb"].shape == (Hc, Wc, 3)
+          and item["proj_hf"].shape == (cfg.dataset.proj_size,) * 2 + (1,)
+          and item["pts_mask"].sum() > 0,
+          "GoogleEarthDataset cannot read the generated city")
+    log(f"GoogleEarthDataset val item 0: {int(item['pts_mask'].sum())} "
+        f"points, keys {sorted(item)}")
+
+    # V1 on view 0's volume, as generate_view builds it
+    pts_host = dg.get_points_from_projections("GOOGLE_EARTH",
+                                              projections_png)
+    pts = torch.as_tensor(pts_host, dtype=torch.int32, device=device)
+    mins = pts_host[:, :3].min(0)
+    offsets = torch.tensor([mins[0], mins[1], mins[2] - 1],
+                           dtype=torch.int32, device=device)
+    ids = torch.arange(1, len(pts) + 1, dtype=torch.int32, device=device)
+    vol = vis.points_to_volume(pts[:, :3] - offsets, ids,
+                               pts[:, 3:4].expand(-1, 3), *vol_shape)
+    occ = vis.pack_occupancy(vol)
+    f32 = dict(dtype=torch.float32, device=device)
+    rays = vis.world_ray_basis(
+        torch.tensor([p0["tx"], p0["ty"], p0["tz"]], **f32),
+        torch.tensor([p0["qx"], p0["qy"], p0["qz"], p0["qw"]], **f32),
+        offsets)
+    K = dg.camera_intrinsics("GOOGLE_EARTH")
+    W, H = dg.sensor_size("GOOGLE_EARTH")
+    use = v1_measure("dataset view", vol, occ, rays, float(K[0, 0]),
+                     (float(K[1, 2]), float(K[0, 2])), (H, W))
+    use["launches"] = launches
+    use["view_ms"] = wall / n
+    return city, use
+
+
+def run_cli(args, what: str, device: str) -> Tuple[str, float]:
+    """``python3 -m gaussiancity_tpu_torch <args> --device <device>`` as a
+    subprocess of this run, from the repository root; fails the run unless
+    it exits 0 on that device.  Returns (its standard output and error,
+    wall seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "gaussiancity_tpu_torch", *args, "--device",
+         device],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=CLI_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    text = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        log(f"{what} failed; the end of its output:\n{text[-4000:]}")
+    check(proc.returncode == 0, f"{what} exited {proc.returncode}")
+    check(f"device: {device}" in text, f"{what} did not run on {device}")
+    return text, wall
+
+
+def phase_cli_train(root: str, device="cuda") -> None:
+    """The CLI's train mode (4 steps of the tiny REST widths on the
+    generated city) and its ``--test`` mode on that checkpoint, each a
+    subprocess on the card."""
+    import re
+
+    from gaussiancity_tpu_torch.training import checkpoint
+
+    out_dir = os.path.join(cli_root(), "out")
+    cfg = cli_config(root, out_dir)
+    cfg_path = os.path.join(cli_root(), "tiny_rest.json")
+    with open(cfg_path, "w") as f:
+        f.write(cfg.to_json())
+    common = ["-r", "rest", "-d", "GOOGLE_EARTH", "-c", cfg_path]
+    text, train_s = run_cli(common + ["-e", cfg.exp_name, "--max-steps",
+                                      "4"], "the CLI's train mode", device)
+    ckpt_dir = os.path.join(out_dir, "ckpt", cfg.exp_name)
+    check(checkpoint.latest_epoch(ckpt_dir) == 1,
+          "the CLI's train mode wrote no epoch-1 checkpoint")
+    with open(os.path.join(out_dir, "logs", cfg.exp_name,
+                           "scalars.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    losses = [r["Loss/Batch/GenLoss"] for r in rows
+              if "Loss/Batch/GenLoss" in r]
+    check(len(losses) == 4 and np.isfinite(losses).all(),
+          f"the CLI's train mode logged {len(losses)} step losses")
+    counters = {k: max(r[k] for r in rows if k in r) for k in (
+        "Raster/Batch/RasterDroppedPairs", "Raster/Batch/RasterTruncated",
+        "Raster/Batch/RasterGradTruncated", "Raster/Batch/PTv3PoolOverflow")}
+    check(not any(counters.values()),
+          f"the CLI's train mode overflowed: {counters}")
+    epoch_s = float(re.search(r"\[Epoch 1/1\] done in ([0-9.]+)s",
+                              text).group(1))
+    for line in text.splitlines():
+        if "BatchTime" in line:
+            log("  CLI train: " + line.split("] ", 1)[-1])
+    text, test_s = run_cli(common + ["--test", "-p", ckpt_dir],
+                           "the CLI's --test mode", device)
+    val = float(re.search(r"\[Val\]\[Epoch 1\] L1Loss (\S+)", text).group(1))
+    check(np.isfinite(val), "the CLI's --test mode gave no finite L1")
+    log(f"CLI train mode: 4 steps, epoch {epoch_s:.2f} s "
+        f"({4 / epoch_s:.3f} steps/s, validation and checkpoint apart), "
+        f"process {train_s:.2f} s; GenLoss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; overflow counters {counters}")
+    log(f"CLI --test mode: val L1 {val:.5f}, process {test_s:.2f} s")
+
+
+def phase_cli_inference(city: str, ckpt_dirs: dict, device="cuda") -> dict:
+    """The CLI's ``--inference`` from the REST and BLDG checkpoints over
+    the generated city (a subprocess on the card), against an in-process
+    ``InferencePipeline`` from ``get_models`` of the same directories with
+    the same poses, style table and budgets: the jpgs byte-equal, K1, V1
+    and G1 on every in-process frame (counts set to 0 just before); then
+    the first frame once more with the arguments of its K1, V1 and G1
+    calls kept, and each kernel held against its plain version on them.
+    Returns each kernel's "cli_frame" use entry."""
+    import re
+    import tempfile
+
+    import cv2
+    import torch
+
+    from gaussiancity_tpu_torch import run
+    from gaussiancity_tpu_torch.inference.loader import (
+        get_city_projections, get_models)
+    from gaussiancity_tpu_torch.inference.pipeline import (
+        InferencePipeline, get_orbit_camera_poses, get_style_lut)
+    from gaussiancity_tpu_torch.ops import hash_grid
+    from gaussiancity_tpu_torch.ops import visibility as vis
+    from gaussiancity_tpu_torch.ops.rasterizer import blend
+
+    video = os.path.join(cli_root(), "video", "orbit.mp4")
+    t_spawn = time.time()
+    text, wall = run_cli(["--inference", "--ckpt-rest", ckpt_dirs["REST"],
+                          "--ckpt-bldg", ckpt_dirs["BLDG"], "--city-dir",
+                          city, "--frames", str(CLI_FRAMES), "--output",
+                          video], "the CLI's --inference mode", device)
+    tm = json.loads(re.search(r"inference timings: (\{.*\})",
+                              text).group(1))
+    jpg_dir = run.frame_dir(video)
+    jpgs = sorted(os.listdir(jpg_dir))
+    check(os.path.getsize(video) > 0
+          and jpgs == [f"{i:04d}.jpg" for i in range(CLI_FRAMES)],
+          "the CLI wrote no video or not one jpg a frame")
+    log(f"CLI --inference: {CLI_FRAMES} frames in {wall:.2f} s of process: "
+        f"start-up (interpreter and imports; the kernels, built by phase 1, "
+        f"load at their first launch) {tm['imports_wall_time'] - t_spawn:.2f}"
+        f" s, checkpoint load {tm['checkpoint_load_s']:.3f} s, projections "
+        f"and centres {tm['projections_s']:.3f} s, set-up extrude "
+        f"{tm['extrude_ms']:.1f} ms + volume {tm['volume_ms']:.1f} ms, "
+        f"median frame {tm['frame_ms_median']:.2f} ms (frames "
+        f"{[round(m, 2) for m in tm['frame_ms']]}), video write "
+        f"{tm['video_write_s']:.3f} s, jpg writes {tm['jpg_write_s']:.3f} s,"
+        f" peak device memory {tm['peak_device_gib']} GiB")
+
+    # as the CLI does: its default budget for each model, the orbit of the
+    # default seed around the map's centre
+    cfg, models, _ = get_models(ckpt_dirs, device=device)
+    projections, centers = get_city_projections(city)
+    budgets = {name: 262144 for name in models}
+    pipe = InferencePipeline(cfg, models, max_points=262144,
+                             class_budgets=budgets, device=device)
+    H, W = projections["REST"]["SEG"].shape
+    poses = get_orbit_camera_poses(max(H, W), n_points=CLI_FRAMES,
+                                   rng=np.random.default_rng(0),
+                                   center=(W // 2, H // 2))
+    lut = get_style_lut(centers, models["BLDG"].cfg.z_dim, seed=0)
+    blend.blend_forward.launches = 0
+    vis.raycast.launches = 0
+    hash_grid.hash_encode_fwd.launches = 0
+    frames = pipe.render_trajectory(projections, centers, poses,
+                                    style_lut=lut)
+    launches = {"blend_fwd": blend.blend_forward.launches,
+                "raycast": vis.raycast.launches,
+                "hash_encode_fwd": hash_grid.hash_encode_fwd.launches}
+    for name, count in launches.items():
+        check(count >= CLI_FRAMES,
+              f"kernel {name} was not launched on every in-process frame")
+    with tempfile.TemporaryDirectory(dir=cli_root()) as tmp:
+        for i, f in enumerate(frames):
+            path = os.path.join(tmp, f"{i:04d}.jpg")
+            check(cv2.imwrite(path, f[..., ::-1]), "cv2 wrote no jpg")
+            with open(path, "rb") as a, open(os.path.join(jpg_dir, jpgs[i]),
+                                             "rb") as b:
+                check(a.read() == b.read(), f"the CLI's frame {i} differs "
+                      "from the in-process pipeline's")
+    log(f"CLI frames byte-equal (jpg) to the in-process pipeline's from the "
+        f"same checkpoints; in-process launches {launches}; buckets (REST, "
+        f"BLDG) {[(st['n_REST'], st['n_BLDG']) for st in pipe.frame_stats]};"
+        f" frame std {[round(float(f.std()), 2) for f in frames]}")
+    check(all(float(f.std()) > 1 for f in frames), "a CLI frame is empty")
+    del frames
+
+    # the kernels at the shapes the CLI's frames give them
+    captured = capture_calls(
+        [(blend, "blend_forward"), (vis, "raycast"),
+         (hash_grid, "hash_encode_fwd")],
+        lambda: pipe.render_trajectory(projections, centers, poses[:1],
+                                       style_lut=lut))
+    check(all(len(a) == 1 for a in captured.values()),
+          "the CLI's frame must call K1, V1 and G1 once each: "
+          f"{ {k: len(v) for k, v in captured.items()} }")
+    k1 = k1_measure("CLI frame", captured["blend_forward"][0])
+    vol, rays, cam_f, cam_c, img_dims, occ = captured["raycast"][0]
+    v1 = v1_measure("CLI frame", vol, occ, rays, cam_f, cam_c, img_dims)
+    g1 = g1_use(phase_g1("CLI frame, REST bucket",
+                         captured["hash_encode_fwd"][0]))
+    uses = {"blend_fwd": k1, "raycast": v1, "hash_encode_fwd": g1}
+    for name, use in uses.items():
+        use["launches"] = launches[name]
+    del pipe, models, captured, vol, rays, occ
+    torch.cuda.empty_cache()
+    return uses
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    profiling = "--profile" in sys.argv[1:]
+    # a run that hangs prints where, and fails inside its time limit
+    faulthandler.dump_traceback_later(HANG_S, exit=True)
+    t_start = time.perf_counter()
+    shutil.rmtree(cli_root(), ignore_errors=True)
+    try:
+        return run_phases(profiling, t_start)
+    finally:
+        shutil.rmtree(cli_root(), ignore_errors=True)
+
+
+def run_phases(profiling: bool, t_start: float) -> int:
+    import torch
+
     from gaussiancity_tpu_torch.config import rest_recipe
     from gaussiancity_tpu_torch.inference.pipeline import (
         get_orbit_camera_poses, get_style_lut)
+    from gaussiancity_tpu_torch.training import checkpoint
 
-    profiling = "--profile" in sys.argv[1:]
-    t_start = time.perf_counter()
     phase_build()
     card = phase_card()
     device = torch.device("cuda")
@@ -1987,6 +2425,9 @@ def main() -> int:
     g1b["backward_ab"] = phase_train_backward_ab(trainer, batch)
     if profiling:
         phase_train_profile(trainer, batch)
+    ckpt_dirs = {name: os.path.join(cli_root(), f"ckpt_{name.lower()}")
+                 for name in ("REST", "BLDG")}
+    checkpoint.save_epoch(ckpt_dirs["REST"], 1, trainer)
     del trainer
     torch.cuda.empty_cache()
 
@@ -2009,6 +2450,7 @@ def main() -> int:
             k.setdefault("uses", {})["bldg_step"] = use
     if profiling:
         phase_train_profile(trainer, batch)
+    checkpoint.save_epoch(ckpt_dirs["BLDG"], 1, trainer)
     del trainer, batch, eval_batch
     torch.cuda.empty_cache()
     log(f"phase time: full-width BLDG train step "
@@ -2016,6 +2458,22 @@ def main() -> int:
     t_phase = time.perf_counter()
     phase_train_loop(device)
     log(f"phase time: training loop {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    city, v1_use = phase_dataset_generation(projections, device)
+    next(k for k in kernels if k["name"] == "raycast").setdefault(
+        "uses", {})["dataset_view"] = v1_use
+    log(f"phase time: dataset generation {time.perf_counter() - t_phase:.1f}"
+        " s")
+    t_phase = time.perf_counter()
+    phase_cli_train(os.path.dirname(city), "cuda")
+    log(f"phase time: CLI train and --test {time.perf_counter() - t_phase:.1f}"
+        " s")
+    t_phase = time.perf_counter()
+    cli_uses = phase_cli_inference(city, ckpt_dirs, "cuda")
+    for k in kernels:
+        if k["name"] in cli_uses:
+            k.setdefault("uses", {})["cli_frame"] = cli_uses[k["name"]]
+    log(f"phase time: CLI --inference {time.perf_counter() - t_phase:.1f} s")
     kernels.append(phase_k4(device))
     # launches on the timed passes: REST frame, two-model frame, REST
     # train steps, BLDG train steps; K4's are those of its probe's timed

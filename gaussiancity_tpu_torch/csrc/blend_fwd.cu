@@ -79,11 +79,18 @@ __global__ void __launch_bounds__(THREADS) blend_fwd_kernel(
       float T = 1.0f, c0 = 0.0f, c1 = 0.0f, c2 = 0.0f;
       int nc = 0;
       bool done = !q.inside;
-      // batch 0's rows in flight, batch 1's index in a register
+      // batch 0's rows in flight, batch 1's index in a register.  A unit
+      // stages only when its tile has slots (count is the block's), so
+      // every staged batch is waited for: a barrier's phases never run
+      // two ahead of a wait on its parity, and no copy or arrival is in
+      // flight when the block exits
       bool v = tid < count;
       int gi = v ? idx[tid] : 0;
-      stage_row(stg.row[issued & 1][tid], attrs, gi, v, &stg.bar[issued & 1]);
-      ++issued;
+      if (count > 0) {
+        stage_row(stg.row[issued & 1][tid], attrs, gi, v,
+                  &stg.bar[issued & 1]);
+        ++issued;
+      }
       v = BATCH + tid < count;
       gi = v ? idx[BATCH + tid] : 0;
       for (int base = 0; base < count; base += BATCH) {

@@ -225,8 +225,10 @@ class SyntheticDataset(Dataset):
                            for i in range(n_items)]
 
     def load_raw(self, idx: int) -> Dict[str, np.ndarray]:
+        from gaussiancity_tpu_torch.data.dataset_generator import (
+            class_scale_table)
         from gaussiancity_tpu_torch.ops.extrusion import (
-            GOOGLE_EARTH_CLASS_SCALES, SegInsRelation, extrude_points_np)
+            SegInsRelation, extrude_points_np)
 
         ds = self.ds
         rng = np.random.default_rng(self.seed * 1000 + idx)
@@ -241,7 +243,7 @@ class SyntheticDataset(Dataset):
         bu = np.zeros((P, P), np.int32)
         ptsm = np.ones((P, P), bool)
         pts5 = extrude_points_np(ins, td, bu, ptsm, SegInsRelation(),
-                                 GOOGLE_EARTH_CLASS_SCALES)
+                                 class_scale_table("GOOGLE_EARTH"))
         n = len(pts5)
         centers = {
             int(i): (float(P / 2), float(P / 2), float(P), float(P), 24.0)

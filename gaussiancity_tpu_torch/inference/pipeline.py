@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from gaussiancity_tpu_torch.camera import CameraModel, matrix_to_quat_xyzw
 from gaussiancity_tpu_torch.config import Config
+from gaussiancity_tpu_torch.data import dataset_generator as dg
 from gaussiancity_tpu_torch.data.datasets import instances_to_classes_np
 from gaussiancity_tpu_torch.data.transforms import _normalize_rel_cords
 from gaussiancity_tpu_torch.device import resolve_device
@@ -206,8 +207,8 @@ class InferencePipeline:
             bldg_roof_semantic_id=ds.bldg_roof_clsid,
             car_ins_min_id=ds.car_range[0] if ds.car_range else 32767,
             car_semantic_id=ds.car_clsid if ds.car_clsid else 32767)
-        scales_tab = (ext.KITTI_360_CLASS_SCALES if ds.name == "KITTI_360"
-                      else ext.GOOGLE_EARTH_CLASS_SCALES)
+        scales_tab = dg.class_scale_table(
+            "KITTI_360" if ds.name == "KITTI_360" else "GOOGLE_EARTH")
         all_pts = []
         for c, p in projections.items():
             pts = ext.extrude_points_np(

@@ -20,6 +20,8 @@ from typing import NamedTuple, Sequence
 
 import numpy as np
 
+BLOCK_VOXELS = 1 << 21  # (pixel, z) rows extruded at once
+
 
 class SegInsRelation(NamedTuple):
     """(reference: scripts/dataset_generator.py:984-1005)"""
@@ -32,19 +34,14 @@ class SegInsRelation(NamedTuple):
     car_semantic_id: int = 32767
 
 
-# class-id -> extrusion scale (reference: dataset_generator.py:68-87,
-# GOOGLE_EARTH; index = class id per CLASSES table :42-66)
-GOOGLE_EARTH_CLASS_SCALES = (1, 2, 1, 2, 1, 4, 2, 1)  # NULL..BLDG_ROOF
-KITTI_360_CLASS_SCALES = (1, 2, 1, 1, 1, 4, 2, 1)
-
-
 def extrude_points_np(
     ins_map: np.ndarray, td_hf: np.ndarray, bu_hf: np.ndarray,
     pts_map: np.ndarray, rel: SegInsRelation,
     class_scales: Sequence[int], include_btm_pts: bool = True,
 ) -> np.ndarray:
-    """NumPy mirror of footprint_extruder.cpp (offline host path).
-    Returns [N, 5] int arrays (x, y, z, scale, instance)."""
+    """NumPy mirror of footprint_extruder.cpp (offline host path), every
+    column's voxels at once.  Returns [N, 5] int32 (x, y, z, scale,
+    instance)."""
     H, W = ins_map.shape
     ins = ins_map.astype(np.int32)
     td = td_hf.astype(np.int32)
@@ -71,21 +68,28 @@ def extrude_points_np(
         nbs_s = nb_same(ins, s) & nb_same(td, s)
         nbs = np.where(scale == s, nbs_s, nbs)
 
-    pts = []
-    for i in range(H):
-        for j in range(W):
-            if not pts_map[i, j]:
-                continue
-            s = int(scale[i, j])
-            iid = int(ins[i, j])
-            at_edge = j < s or j >= W - s - 1 or i < s or i >= H - s - 1
-            for k in range(int(bu[i, j]), int(td[i, j]) + 1, s):
-                is_top = k > td[i, j] - s
-                is_btm = include_btm_pts and k == bu[i, j]
-                if not (is_top or is_btm or at_edge or not nbs[i, j]):
-                    continue
-                out_id = iid
-                if is_top and sem[i, j] == rel.bldg_facade_semantic_id:
-                    out_id += rel.roof_ins_offset
-                pts.append((j, i, k, s, out_id))
-    return np.asarray(pts, dtype=np.int32).reshape(-1, 5)
+    # one row per (pixel, z) of every masked column, pixels row-major and
+    # z ascending: z runs over range(bu, td + 1, s); the columns go in
+    # blocks that start within one BLOCK_VOXELS window of rows, so the rows
+    # held before the border test stay bounded on a large map
+    ii, jj = np.nonzero(pts_map)
+    s, b, t = scale[ii, jj], bu[ii, jj], td[ii, jj]
+    n = np.maximum((t - b) // s + 1, 0)
+    first = np.cumsum(n) - n
+    blocks = []
+    for cols in np.split(np.arange(len(ii)), np.flatnonzero(
+            np.diff(first // BLOCK_VOXELS)) + 1):
+        nc = n[cols]
+        col = np.repeat(cols, nc)
+        k = b[col] + s[col] * (np.arange(len(col))
+                               - np.repeat(np.cumsum(nc) - nc, nc))
+        i, j, sc, tc = ii[col], jj[col], s[col], t[col]
+        is_top = k > tc - sc
+        at_edge = (j < sc) | (j >= W - sc - 1) | (i < sc) | (i >= H - sc - 1)
+        keep = is_top | at_edge | ~nbs[i, j]
+        if include_btm_pts:
+            keep |= k == b[col]
+        roof = is_top & (sem[i, j] == rel.bldg_facade_semantic_id)
+        out_id = ins[i, j] + np.where(roof, rel.roof_ins_offset, 0)
+        blocks.append(np.stack([j, i, k, sc, out_id], axis=1)[keep])
+    return np.concatenate(blocks).astype(np.int32)

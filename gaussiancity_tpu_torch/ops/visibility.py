@@ -26,6 +26,9 @@ the hit.  The JAX march's banding, column stepping and survivor
 compaction are not carried over: V1's hits and depths are those of
 ``raycast_plain`` bit for bit.  Volumes are indexed [y, x, z] and ray
 origins given in that order.
+
+``get_visible_points`` is dataset generation's view: the id volume of the
+view's points, then the raycast, as ``visible_from_volume``.
 """
 
 from __future__ import annotations
@@ -156,6 +159,22 @@ def ray_basis(cam_ori: torch.Tensor, cam_dir: torch.Tensor,
     return torch.cat([cam_ori.float(), up, side, fwd]).contiguous()
 
 
+def ray_directions(rays: torch.Tensor, cam_f: float,
+                   cam_c: Tuple[float, float], img_dims: Tuple[int, int]
+                   ) -> torch.Tensor:
+    """[H, W, 3] float32 unit direction of each pixel's ray (volume axis
+    order), from the ``ray_basis`` ``rays``: up * (cy - py) + side *
+    (px - cx) + fwd * f, normalised.  V1 computes the same per ray."""
+    H, W = img_dims
+    f32 = dict(dtype=torch.float32, device=rays.device)
+    ndc0 = cam_c[0] - torch.arange(H, **f32)[:, None]
+    ndc1 = torch.arange(W, **f32)[None, :] - cam_c[1]
+    up, side, fwd = rays[3:6], rays[6:9], rays[9:12]
+    rd = [up[i] * ndc0 + side[i] * ndc1 + fwd[i] * cam_f for i in range(3)]
+    nrm = torch.sqrt(rd[0] * rd[0] + rd[1] * rd[1] + rd[2] * rd[2])
+    return torch.stack([r / nrm for r in rd], dim=-1)
+
+
 def raycast_plain(volume: torch.Tensor, rays: torch.Tensor, cam_f: float,
                   cam_c: Tuple[float, float], img_dims: Tuple[int, int],
                   ztop: float):
@@ -171,15 +190,8 @@ def raycast_plain(volume: torch.Tensor, rays: torch.Tensor, cam_f: float,
     h, w, d = volume.shape
     vol_flat = volume.reshape(-1)
     f32 = dict(dtype=torch.float32, device=dev)
-    py = torch.arange(H, **f32)[:, None]
-    px = torch.arange(W, **f32)[None, :]
-    ndc0 = cam_c[0] - py
-    ndc1 = px - cam_c[1]
-    o, up, side, fwd = rays[0:3], rays[3:6], rays[6:9], rays[9:12]
-    rd = [(up[i] * ndc0 + side[i] * ndc1 + fwd[i] * cam_f).reshape(-1)
-          for i in range(3)]
-    nrm = torch.sqrt(rd[0] * rd[0] + rd[1] * rd[1] + rd[2] * rd[2])
-    rd = torch.stack([r / nrm for r in rd], dim=1)  # [R, 3]
+    o = rays[0:3]
+    rd = ray_directions(rays, cam_f, cam_c, img_dims).reshape(-1, 3)
     R = H * W
 
     z_land = torch.tensor(ztop + 0.5, **f32)
@@ -330,6 +342,7 @@ def raycast_work(volume: torch.Tensor, rays: torch.Tensor, cam_f: float,
 class RaycastResult(NamedTuple):
     voxel_id: torch.Tensor  # [H, W] int32 value stored in the volume
     depth: torch.Tensor  # [H, W] float32 entry parameter; inf on a miss
+    raydirs: torch.Tensor  # [H, W, 3] float32 unit ray directions
 
 
 def ray_voxel_intersection(volume: torch.Tensor, cam_ori: torch.Tensor,
@@ -345,7 +358,8 @@ def ray_voxel_intersection(volume: torch.Tensor, cam_ori: torch.Tensor,
                      torch.as_tensor(cam_dir, device=volume.device),
                      torch.as_tensor(cam_up, device=volume.device))
     return RaycastResult(*raycast(volume, rays, cam_f, cam_c, img_dims,
-                                  occupancy))
+                                  occupancy),
+                         ray_directions(rays, cam_f, cam_c, img_dims))
 
 
 def world_ray_basis(cam_pos: torch.Tensor, cam_quat: torch.Tensor,
@@ -377,3 +391,23 @@ def visible_from_volume(vol: torch.Tensor, points: torch.Tensor,
     ins_map = torch.where(vp_map >= 0, ins[vp_map.clamp(min=0)],
                           torch.zeros_like(vp_map, dtype=ins.dtype))
     return vp_map, ins_map
+
+
+def get_visible_points(points: torch.Tensor, scales3: torch.Tensor,
+                       cam_pos: torch.Tensor, cam_quat: torch.Tensor,
+                       cam_f: float, cam_c: Tuple[float, float],
+                       img_dims: Tuple[int, int],
+                       vol_shape: Tuple[int, int, int],
+                       offsets: torch.Tensor, valid=None):
+    """Visible points of one view (upstream dataset_generator.py
+    :1420-1461): the id volume of ``points`` [N, 5] (x, y, z, scale,
+    instance) at 1-based point ids, its origin at world ``offsets``
+    (x, y, z), then ``visible_from_volume``.  Returns (vp_map [H, W] point
+    index or -1, ins_map [H, W])."""
+    h, w, d = vol_shape
+    ids = torch.arange(1, points.shape[0] + 1, dtype=torch.int32,
+                       device=points.device)
+    vol = points_to_volume(points[:, :3] - offsets, ids, scales3, h, w, d,
+                           valid=valid)
+    return visible_from_volume(vol, points, cam_pos, cam_quat, cam_f, cam_c,
+                               img_dims, offsets)

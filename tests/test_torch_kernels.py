@@ -145,6 +145,36 @@ def test_blend_kernel_matches_plain(dev, case):
         assert int(bins.n_truncated) > 0
 
 
+def test_blend_kernel_queued_launches_with_empty_tiles(dev):
+    """Tiles with no slot and tiles with one among full ones (the
+    persistent blocks take the most slots first, then 0 and 1 in any
+    order): a queue of back-to-back launches ends, each bit-equal to the
+    plain version.  An empty tile's unit must stage nothing: a batch that
+    is never waited for leaves a persistent block's barrier parity two
+    phases behind its next wait, and the queue hangs."""
+    import time
+
+    attrs, bins, origin, H, W, consts = _binned("frame_truncated",
+                                                BLEND_CASES, 1, dev)
+    pick = torch.randint(0, 4, bins.counts.shape,
+                         generator=torch.Generator().manual_seed(0)).to(dev)
+    counts = torch.where(pick == 0, 0, torch.where(
+        pick == 1, bins.counts.clamp(max=1), bins.counts)).to(torch.int32)
+    assert int((counts == 0).sum()) > 50 and int((counts == 1).sum()) > 50
+    args = (attrs, bins.gauss_index, counts, origin,
+            torch.tensor([0.3, 0.1, 0.6], device=dev), H, W, consts)
+    want = blend.blend_forward_plain(*args)
+    outs = [blend.blend_forward(*args) for _ in range(32)]
+    done = torch.cuda.Event()
+    done.record()
+    t0 = time.monotonic()
+    while not done.query():
+        assert time.monotonic() - t0 < 60, "queued K1 launches did not end"
+        time.sleep(0.01)
+    for got in outs:
+        assert all(torch.equal(a, b) for a, b in zip(got, want[:3]))
+
+
 def test_blend_kernel_rejects_mixed_devices(dev):
     consts = blend.BlendConsts(tile_h=8, tile_w=128, n_tx=2)
     attrs = torch.zeros(4, 10, device=dev)

@@ -60,7 +60,7 @@ def rest_pair():
     cfg = tiny_cfg()
     P, N = cfg.dataset.proj_size, 2048
     gen = JGenerator(cfg=cfg.network, n_classes=8, proj_size=P)
-    params = jax.tree_util.tree_map(np.asarray, gen.init(
+    params = jax.tree_util.tree_map(np.asarray, jax.jit(gen.init)(
         jax.random.PRNGKey(0), jnp.zeros((1, N, 2)), jnp.zeros((1, N, 3)),
         None, jnp.zeros((1, N, 8)), None, jnp.zeros((1, P, P, 1)),
         jnp.zeros((1, P, P, 8)), jnp.ones((1, N), bool))["params"])

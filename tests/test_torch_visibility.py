@@ -23,6 +23,7 @@ from gaussiancity_tpu.training.step import (
 from gaussiancity_tpu.utils import helpers as jhelpers
 
 from gaussiancity_tpu_torch.config import DatasetConfig
+from gaussiancity_tpu_torch.data import dataset_generator as dg
 from gaussiancity_tpu_torch.data.datasets import instances_to_classes_np
 from gaussiancity_tpu_torch.data.transforms import _normalize_rel_cords
 from gaussiancity_tpu_torch.ops import extrusion as ext
@@ -61,9 +62,9 @@ class TestHostHelpers:
                            ext.SegInsRelation(car_ins_min_id=32768,
                                               car_semantic_id=6))):
             for jtab, tab in ((jext.GOOGLE_EARTH_CLASS_SCALES,
-                               ext.GOOGLE_EARTH_CLASS_SCALES),
+                               dg.class_scale_table("GOOGLE_EARTH")),
                               (jext.KITTI_360_CLASS_SCALES,
-                               ext.KITTI_360_CLASS_SCALES)):
+                               dg.class_scale_table("KITTI_360"))):
                 assert tab == jtab
                 want = jext.extrude_points_np(*maps, jrel, jtab,
                                               include_btm_pts=btm)
