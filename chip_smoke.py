@@ -90,7 +90,39 @@ Phases, each of which fails the run if it fails:
     at the end;
 19. drive the row-gather probe (K4) at its shape, count set to 0 just
     before, and hold K4 against its plain version (bit-equal, and on a
-    repeat).
+    repeat);
+20. the model-surface options at tiny widths, card against CPU: a bf16
+    REST step and a bf16 BLDG step at batch size 2 (within the bf16 noise
+    that the CPU's float32 steps measure, the first step's generator loss
+    within a quarter of it; as a control, the card's float32 steps must
+    break one of these limits), a LOCAL REST step, the small PTv3 with
+    ``enable_rpe`` and with the sorted-merge neighbour search,
+    ``naive_render`` against ``rasterize`` (K1 within 1e-5) and
+    ``rasterize_checked`` on a NaN colour (snapshot and raise) and on a
+    NaN mean (culled);
+21. the full-width REST step in bf16 (``network`` and ``train``
+    ``compute_dtype``) on phase 9's batch: K1, K2, K3, G1 and G1b held
+    against their plain versions on one step's inputs, then 2 warm-up and
+    5 timed steps with the counts set to 0 just before them, the stage
+    split and peak beside phase 9's float32 step;
+22. the full-width BLDG step at batch size 2 (building 172 and the next
+    largest, 16,384 rows each with the point mask), in float32 and in
+    bf16: K1, K2 and K3 held on one step's inputs, 2 + 5 steps, PTv3
+    apart, peak memory, an eval step (``--profile``: the device's busy
+    share);
+23. the full-width REST step with the LOCAL encoder on phase 9's batch
+    with the city's projection maps: G1, G1b (with the input gradient)
+    and K3 held against their plain versions on one step's inputs and
+    timed, then 2 + 5 steps;
+24. PTv3 at the BLDG recipe's widths in eval on phase 14's 16,384
+    points: the sorted-merge neighbours equal to the dense ones at every
+    search, both searches timed, the forward with each (outputs equal)
+    and with ``enable_rpe`` timed, with its peak memory;
+25. the two-model frame with both generators in bf16 (phase 11's
+    weights, scene and poses): its median beside phase 11's, the
+    per-pixel grey-level difference from phase 11's frames (within 1 at
+    >= 99 % of pixels, and unequal at >= 1 %), and K1 held against its
+    plain version on the first frame's inputs.
 
 The perceptual loss runs on seeded random VGG19 weights (the repository
 holds no converted ImageNet weights) behind the JAX package's opt-in gate,
@@ -104,12 +136,17 @@ use; K1, K2 and K3 also their use on the BLDG step, under "uses" as
 "bldg_step"; V1 also its use on a generated dataset view, under "uses"
 as "dataset_view"; K1, V1 and G1 also their use on the CLI's inference
 frame, under "uses" as "cli_frame"; G1b also the backward's launches
-per step and the A/B of phase 9), and as its last line
+per step and the A/B of phase 9; the uses of phases 21-23 under
+"rest_step_bf16", "bldg_step_b2_f32", "bldg_step_b2_bf16" and
+"local_step", K3's with its kind appended; K1's on phase 25's frame as
+"bf16_frame"), and as its last line
 ``{"ok": true, "device": {...}}``.
 
 Run from the repository root: ``python3 chip_smoke.py``
-(``--profile`` adds torch.profiler passes over the frame and the train
-step).  Without a CUDA device, or outside the repository, it exits
+(``--profile`` adds passes over the frames and the train steps under
+the port's ``utils.profiling.trace``: device time by kernel, the busy
+share, and Chrome traces under ``output/chip_smoke_cli/traces``, removed
+at the end).  Without a CUDA device, or outside the repository, it exits
 non-zero and prints no result.
 """
 
@@ -120,11 +157,12 @@ import faulthandler
 import json
 import os
 import pickle
+import re
 import shutil
 import subprocess
 import sys
 import time
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 
@@ -601,7 +639,8 @@ def phase_frame(pipe, projections, centers, poses, style_lut=None,
     """Warm-up pass (the first frame rendered once more, keeping its
     hash-grid inputs, then every frame), then a timed pass with the
     kernels' launch counts set to 0 just before it.  Returns the launches
-    and the first frame's G1 arguments."""
+    (with the median frame time without set-up under "median_ms"), the
+    first frame's G1 arguments and the timed pass's frames."""
     import torch
 
     from gaussiancity_tpu_torch.ops import hash_grid
@@ -655,16 +694,27 @@ def phase_frame(pipe, projections, centers, poses, style_lut=None,
     log(f"launches on the timed pass: {launches}")
     for name, count in launches.items():
         check(count >= n, f"kernel {name} was not launched on every frame")
-    return launches, g1_args[0]
+    launches["median_ms"] = float(np.median(frame_ms))
+    return launches, g1_args[0], frames
+
+
+def trace_dir(what: str) -> str:
+    """A fresh directory for one profiled pass's Chrome trace, under the
+    run's output directory (removed at the end of the run)."""
+    root = os.path.join(cli_root(), "traces")
+    os.makedirs(root, exist_ok=True)
+    return os.path.join(root, f"{len(os.listdir(root)):02d}_"
+                        + what.replace(" ", "_"))
 
 
 def phase_profile(pipe, projections, centers, poses, style_lut=None):
-    """One more pass under torch.profiler: device time by kernel and the
+    """One more pass under the port's ``utils.profiling.trace``
+    (torch.profiler, a Chrome trace): device time by kernel and the
     device's busy share of the per-frame wall time (``--profile``)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from gaussiancity_tpu_torch.inference.pipeline import frame_to_uint8
+    from gaussiancity_tpu_torch.utils import profiling
 
     # per-trajectory set-up outside the window: only the frames are traced
     state = pipe.prepare(projections, centers, style_lut)
@@ -672,15 +722,17 @@ def phase_profile(pipe, projections, centers, poses, style_lut=None):
         frame_to_uint8(pipe.render_pose(state[0], centers, *state[1:],
                                         poses[0])[0])
     torch.cuda.synchronize()
-    with torch.inference_mode(), profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with torch.inference_mode(), profiling.trace(
+            trace_dir("frames")) as prof:
         t0 = time.perf_counter()
-        for pose in poses:
-            frame_to_uint8(pipe.render_pose(state[0], centers, *state[1:],
-                                            pose)[0])
+        for i, pose in enumerate(poses):
+            with profiling.step_annotation("frame", i):
+                frame_to_uint8(pipe.render_pose(
+                    state[0], centers, *state[1:], pose)[0])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    report_profile(prof, wall_ms, f"{len(poses)} frames")
+    report_profile(prof, wall_ms, f"{len(poses)} frames",
+                   {f"frame#{i}" for i in range(len(poses))})
 
 
 def synthetic_rest_batch(cfg, n_pts: int, seed: int, device):
@@ -767,22 +819,38 @@ def capture_calls(targets, fn) -> dict:
 
 
 def capture_step_inputs(trainer, batch):
-    """One train step, keeping the arguments of its K2 call, of its two K3
-    calls (the hash-grid and the per-Gaussian use), of its G1 call and of
-    its G1b call."""
+    """One REST train step, keeping the arguments of its K1 and K2 calls,
+    of its two K3 calls (the hash-grid and the per-Gaussian use), of its
+    G1 call and of its G1b call."""
     from gaussiancity_tpu_torch.ops import hash_grid, hash_grid_bwd
     from gaussiancity_tpu_torch.ops.rasterizer import blend
 
     captured = capture_calls(
-        [(blend, "blend_backward"), (hash_grid_bwd, "segment_sum_sorted"),
+        [(blend, "blend_forward"), (blend, "blend_backward"),
+         (hash_grid_bwd, "segment_sum_sorted"),
          (hash_grid, "hash_encode_fwd"), (hash_grid, "hash_encode_bwd")],
         lambda: trainer.train_step(batch))
-    check(len(captured["hash_encode_fwd"]) == 1
-          and len(captured["hash_encode_bwd"]) == 1,
-          "a train step must call G1 and G1b once each")
-    captured["blend_bwd"] = captured.pop("blend_backward")[-1]
+    check(all(len(captured[k]) == 1 for k in (
+        "blend_forward", "blend_backward", "hash_encode_fwd",
+        "hash_encode_bwd")) and len(captured["segment_sum_sorted"]) == 2,
+          "a REST train step must call K1, K2, G1 and G1b once each and K3 "
+          "twice")
+    captured["blend_fwd"] = captured.pop("blend_forward")[0]
+    captured["blend_bwd"] = captured.pop("blend_backward")[0]
     captured["segment_sum"] = captured.pop("segment_sum_sorted")
     return captured
+
+
+def k3_uses(calls, what: str) -> dict:
+    """K3 against its plain version on each captured call of a REST step,
+    by use ("hash_grid", "per_gaussian")."""
+    uses = {}
+    for keys, rows, n_rows in calls:
+        kind = "hash_grid" if rows.shape[0] > 1 else "per_gaussian"
+        uses[kind] = k3_measure(f"{what}, {kind}", keys, rows, n_rows)
+    check(sorted(uses) == ["hash_grid", "per_gaussian"],
+          "the train step must call K3 for both of its uses")
+    return uses
 
 
 def phase_grad_kernels(captured):
@@ -792,14 +860,7 @@ def phase_grad_kernels(captured):
           "source": "gaussiancity_tpu_torch/csrc/blend_bwd.cu",
           "replaces": "gaussiancity_tpu/ops/rasterizer/blend_pallas.py:350",
           **k2_measure("REST step", captured["blend_bwd"])}
-    uses = {}
-    for keys, rows, n_rows in captured["segment_sum"]:
-        use = "hash_grid" if rows.shape[0] > 1 else "per_gaussian"
-        uses[use] = (keys, rows, n_rows)
-    check(sorted(uses) == ["hash_grid", "per_gaussian"],
-          "the train step must call K3 for both of its uses")
-    per_use = {use: k3_measure(use, *args)
-               for use, args in sorted(uses.items())}
+    per_use = k3_uses(captured["segment_sum"], "REST step")
     k3 = {"name": "segment_sum", "route": "cuda",
           "source": "gaussiancity_tpu_torch/csrc/segment_sum.cu",
           "replaces": "gaussiancity_tpu/ops/hash_grid_bwd.py:57",
@@ -1023,9 +1084,11 @@ def phase_small_two_model(devices=("cuda", "cpu")):
           "the card and the CPU fed the generators different points")
 
 
-def two_model_pipeline(cfg, device):
+def two_model_pipeline(cfg, device, compute_dtype: str = "float32"):
     """The JAX package's two-model frame (bench.py:373-417): the REST and
-    BLDG recipes at full widths, seeded, on the compact path."""
+    BLDG recipes at full widths, seeded, on the compact path; both
+    generators computing in ``compute_dtype`` (the same weights in either
+    dtype)."""
     import torch
 
     from gaussiancity_tpu_torch.config import bldg_recipe
@@ -1035,6 +1098,7 @@ def two_model_pipeline(cfg, device):
     models = {}
     for name, net, seed in (("REST", cfg.network, 0),
                             ("BLDG", bldg_recipe().network, 1)):
+        net = net.replace(compute_dtype=compute_dtype)
         models[name] = Generator(net, n_classes=cfg.dataset.n_classes,
                                  proj_size=cfg.dataset.proj_size)
         models[name].reset_parameters(torch.Generator().manual_seed(seed))
@@ -1043,20 +1107,21 @@ def two_model_pipeline(cfg, device):
                              class_budgets=FRAME_BUDGETS, device=device)
 
 
-def phase_two_model_frame(pipe, projections, centers, poses, lut):
+def phase_two_model_frame(pipe, projections, centers, poses, lut,
+                          what: str = "two-model frame"):
     """The two-model frame: warm-up pass (keeping the first frame's
     hash-grid inputs), timed pass, BLDG buckets non-empty."""
-    launches, g1_args = phase_frame(pipe, projections, centers, poses, lut,
-                                    what="two-model frame")
+    launches, g1_args, frames = phase_frame(pipe, projections, centers,
+                                            poses, lut, what=what)
     sizes = [(st["n_REST"], st["n_BLDG"]) for st in pipe.frame_stats]
     log(f"two-model buckets (REST, BLDG) per frame: {sizes}")
     for i, (_, n_bldg) in enumerate(sizes):
         check(n_bldg > 0, f"two-model frame {i} has an empty BLDG bucket")
     med = {stage: float(np.median(ms)) for stage, ms in pipe.stage_ms.items()
            if len(ms) == len(poses)}
-    log("two-model frame stage medians (ms): " + json.dumps(
+    log(f"{what} stage medians (ms): " + json.dumps(
         {k: round(v, 2) for k, v in med.items()}))
-    return launches, g1_args
+    return launches, g1_args, frames
 
 
 def phase_g1(use: str, args) -> dict:
@@ -1327,45 +1392,35 @@ def tiny_train_config():
             discriminator=DiscriminatorOptim(n_warmup_iters=1)))
 
 
-def phase_small_train(device):
-    """Two tiny train steps on the card (kernels) and on the CPU (plain
-    versions) from the same seeded weights: losses and gradients agree."""
-    from gaussiancity_tpu_torch.training.step import Trainer
-
-    cfg = tiny_train_config()
-    runs = {}
-    for dev in (device, "cpu"):
-        trainer = Trainer(cfg, device=dev, seed=3)
-        batch = synthetic_rest_batch(cfg, 256, seed=4, device=dev)
-        metrics, grads = [], None
-        for i in range(2):
-            metrics.append({k: float(v)
-                            for k, v in trainer.train_step(batch).items()})
-            if i == 0:
-                grads = {f"{m}.{n}": p.grad.detach().cpu().clone()
-                         for m, mod in (("G", trainer.generator),
-                                        ("D", trainer.discriminator))
-                         for n, p in mod.named_parameters()}
-        runs[dev] = (metrics, grads)
-    (m_card, g_card), (m_cpu, g_cpu) = runs[device], runs["cpu"]
-    for i, (a, b) in enumerate(zip(m_card, m_cpu)):
-        for k in b:
-            ok = abs(a[k] - b[k]) <= STEP_LOSS_RTOL * abs(b[k]) + 1e-7
-            check(np.isfinite(a[k]) and ok,
-                  f"tiny step {i} {k}: card {a[k]} vs CPU {b[k]}")
-        log(f"tiny step {i} card vs CPU: GenLoss {a['GenLoss']:.6f} / "
-            f"{b['GenLoss']:.6f}, DisLoss {a['DisLoss']:.6f} / "
-            f"{b['DisLoss']:.6f}")
+def phase_small_train(device, cfg=None, make_batch=None,
+                      what: str = "tiny step"):
+    """Two train steps of ``cfg`` (the tiny config) on the card (kernels)
+    and on the CPU (plain versions) from the same seeded weights: losses
+    and gradients agree."""
+    cfg = cfg or tiny_train_config()
+    make_batch = make_batch or (lambda dev: synthetic_rest_batch(
+        cfg, 256, seed=4, device=dev))
+    runs = step_runs(cfg, make_batch, (device, "cpu"), 3)
     worst = 0.0
-    for name, want in g_cpu.items():
-        scale = float(want.abs().max())
-        err = float((g_card[name] - want).abs().max())
-        worst = max(worst, err / scale if scale > 0 else err)
-        check(err <= STEP_GRAD_RTOL * scale,
-              f"tiny step gradient {name}: card vs CPU max|d| {err:.3e}, "
-              f"scale {scale:.3e}")
-    log(f"tiny step gradients card vs CPU: worst max|d| / scale "
-        f"{worst:.3e} over {len(g_cpu)} parameters")
+    for i, ((m_card, g_card), (m_cpu, g_cpu)) in enumerate(
+            zip(runs[device], runs["cpu"])):
+        for k, v in m_cpu.items():
+            ok = abs(m_card[k] - v) <= STEP_LOSS_RTOL * abs(v) + 1e-7
+            check(np.isfinite(m_card[k]) and ok,
+                  f"{what} {i} {k}: card {m_card[k]} vs CPU {v}")
+        log(f"{what} {i} card vs CPU: GenLoss {m_card['GenLoss']:.6f} / "
+            f"{m_cpu['GenLoss']:.6f}, DisLoss {m_card['DisLoss']:.6f} / "
+            f"{m_cpu['DisLoss']:.6f}")
+        for name, want in g_cpu.items():
+            scale = float(want.abs().max())
+            err = float((g_card[name] - want).abs().max())
+            worst = max(worst, err / scale if scale > 0 else err)
+            check(err <= STEP_GRAD_RTOL * scale,
+                  f"{what} {i} gradient {name}: card vs CPU max|d| "
+                  f"{err:.3e}, scale {scale:.3e}")
+    log(f"{what} gradients card vs CPU: worst max|d| / scale {worst:.3e} "
+        f"over {len(g_cpu)} parameters, both steps")
+    return runs
 
 
 def phase_train(trainer, batch, n_warm: int = 2, n_timed: int = 5):
@@ -1456,12 +1511,15 @@ def phase_train(trainer, batch, n_warm: int = 2, n_timed: int = 5):
           "K3 must be launched for both of its uses on every train step")
     launches["segment_sum_by_use"] = k3_calls
     med = float(np.median(step_ms))
+    peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"train step: median {med:.2f} ms of {n_timed} (stage timers "
         f"synchronise the device at each boundary); peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"{peak:.2f} GiB")
     for stage, ms in trainer.stage_ms.items():
         log(f"  stage {stage:10s} " + " ".join(f"{v:9.2f}" for v in ms)
             + f"   median {float(np.median(ms)):9.2f} ms")
+    launches["median_ms"] = med
+    launches["peak_gib"] = peak
     return launches
 
 
@@ -1505,23 +1563,31 @@ def phase_train_backward_ab(trainer, batch, n: int = 3) -> dict:
 
 
 def phase_train_profile(trainer, batch, n: int = 3):
-    """torch.profiler over ``n`` train steps (``--profile``): device
-    time by kernel and the device's busy share of the wall time."""
+    """``n`` train steps under the port's ``utils.profiling.trace``
+    (``--profile``): device time by kernel and the device's busy share of
+    the wall time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+
+    from gaussiancity_tpu_torch.utils import profiling
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiling.trace(trace_dir("train_steps")) as prof:
         t0 = time.perf_counter()
-        for _ in range(n):
-            trainer.train_step(batch)
+        for i in range(n):
+            with profiling.step_annotation("train_step", i):
+                trainer.train_step(batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    report_profile(prof, wall_ms, f"{n} train steps")
+    report_profile(prof, wall_ms, f"{n} train steps",
+                   {f"train_step#{i}" for i in range(n)})
 
 
-def report_profile(prof, wall_ms: float, what: str) -> None:
+def report_profile(prof, wall_ms: float, what: str,
+                   annotations: set) -> None:
+    """Device time by kernel and the busy share of ``wall_ms``.  The step
+    annotations (``annotations``, the names ``step_annotation`` gave)
+    also show on the device's timeline, spanning their kernels: they are
+    not device work and are left out."""
     import torch
 
     def device_us(e):
@@ -1530,14 +1596,19 @@ def report_profile(prof, wall_ms: float, what: str) -> None:
 
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
-              and device_us(e) > 0]
+              and device_us(e) > 0 and e.key not in annotations]
     events.sort(key=lambda e: -device_us(e))
     busy_ms = sum(device_us(e) for e in events) / 1e3
     log(f"profile: {what}, wall {wall_ms:.2f} ms, device busy "
         f"{busy_ms:.2f} ms ({busy_ms / wall_ms:.4f} of wall)")
     for e in events[:25]:
         log(f"  {device_us(e) / 1e3:10.3f} ms {e.count:6d}x {e.key[:100]}")
-    check(busy_ms > 0, "the profiler saw no device time")
+    # the port launches on one stream (cuDNN may overlap a little: the
+    # LOCAL step read 0.83-0.95); an annotation counted as device work
+    # spans its kernels and nearly doubles the share
+    check(0 < busy_ms < 1.1 * wall_ms, "the profiler's device time is "
+          "not within the wall time: an annotation counted as device work, "
+          "or nothing traced")
 
 
 # ---------------------------------------------------------------------------
@@ -1663,15 +1734,17 @@ def bldg_train_config():
     return cfg.replace(train=cfg.train.replace(allow_random_vgg=True))
 
 
-def building_batch(cfg, projections, centers, device, seed: int = 0):
+def building_batch(cfg, projections, centers, device, seed: int = 0,
+                   rank: int = 0):
     """16,384 points of one building's shell (facade and roof) from the
     synthetic city, as a train batch and as an eval batch.
 
     The city's projections are extruded as a building's are, bottom ring
-    included; the building with the most shell points (at least 16,384)
-    is taken, a sorted random subset of 16,384 kept (as ``PadPoints``
-    keeps one) and normalised per instance as ``NormalizePointCords``
-    does.  The camera looks at the building's mid-height diagonally from
+    included; the building with the ``rank``-th most shell points is
+    taken (rank 0: the most, at least 16,384), a sorted random subset of
+    16,384 kept (as ``PadPoints`` keeps one), or all of them padded to
+    16,384 with masked copies of the first, and normalised per instance
+    as ``NormalizePointCords`` does.  The camera looks at the building's mid-height diagonally from
     0.75 of the distance at which its height fills the crop; the crops are
     centred and the targets random."""
     import torch
@@ -1691,15 +1764,19 @@ def building_batch(cfg, projections, centers, device, seed: int = 0):
     ids = pts[:, 4].astype(np.int64)
     bldg = np.where(ids >= 100, ids - (ids - 100) % 2, -1)
     uniq, counts = np.unique(bldg[bldg >= 0], return_counts=True)
-    iid = int(uniq[np.argmax(counts)])
+    iid = int(uniq[np.argsort(-counts, kind="stable")[rank]])
     shell = pts[bldg == iid]
-    log(f"BLDG batch: building {iid} of {len(uniq)}, {len(shell)} shell "
-        f"points (facade {int((shell[:, 4] == iid).sum())}, roof "
+    log(f"BLDG batch: building {iid} of {len(uniq)} (rank {rank}), "
+        f"{len(shell)} shell points (facade "
+        f"{int((shell[:, 4] == iid).sum())}, roof "
         f"{int((shell[:, 4] == iid + 1).sum())})")
-    check(len(shell) >= BLDG_POINTS,
+    check(rank > 0 or len(shell) >= BLDG_POINTS,
           f"no building of the city has {BLDG_POINTS} shell points")
     rng = np.random.default_rng(seed)
-    shell = shell[np.sort(rng.choice(len(shell), BLDG_POINTS, replace=False))]
+    n_valid = min(len(shell), BLDG_POINTS)
+    shell = shell[np.sort(rng.choice(len(shell), n_valid, replace=False))]
+    shell = np.concatenate([shell, np.repeat(shell[:1],
+                                             BLDG_POINTS - n_valid, 0)])
     pts9 = np.concatenate([shell.astype(np.float32),
                            _normalize_rel_cords(shell, centers)], axis=1)
     cx, cy, _, _, d = centers[iid]
@@ -1718,8 +1795,8 @@ def building_batch(cfg, projections, centers, device, seed: int = 0):
         Wc, Hc = crop
         return {
             "pts": torch.as_tensor(pts9[None], **f32),
-            "pts_mask": torch.ones((1, BLDG_POINTS), dtype=torch.bool,
-                                   device=device),
+            "pts_mask": torch.arange(BLDG_POINTS, device=device)[None]
+            < n_valid,
             "rgb": torch.as_tensor(rng.uniform(-1, 1, (1, Hc, Wc, 3)), **f32),
             "seg": torch.as_tensor(np.eye(ds.n_classes)[rng.integers(
                 0, ds.n_classes, (1, Hc, Wc))], **f32),
@@ -1732,10 +1809,18 @@ def building_batch(cfg, projections, centers, device, seed: int = 0):
     return batch(ds.train_crop_size), batch(ds.test_crop_size)
 
 
-def phase_bldg_kernels(trainer, batch) -> dict:
-    """One BLDG step with the arguments of its K1, K2 and K3 calls kept;
-    K1, K2 and K3 (per Gaussian) against their plain versions on them.
-    Returns each kernel's "bldg_step" use entry."""
+def stack_batches(batches):
+    """Train batches of one sample each -> one batch of all of them."""
+    import torch
+
+    return {k: torch.cat([b[k] for b in batches]) for k in batches[0]}
+
+
+def phase_bldg_kernels(trainer, batch, use: str = "BLDG step") -> dict:
+    """One BLDG step with the arguments of its K1, K2 and K3 calls kept
+    (one each per sample); K1, K2 and K3 (per Gaussian) against their
+    plain versions on the first sample's.  Returns each kernel's use
+    entry."""
     from gaussiancity_tpu_torch.ops import hash_grid_bwd
     from gaussiancity_tpu_torch.ops.rasterizer import blend
 
@@ -1743,38 +1828,41 @@ def phase_bldg_kernels(trainer, batch) -> dict:
         [(blend, "blend_forward"), (blend, "blend_backward"),
          (hash_grid_bwd, "segment_sum_sorted")],
         lambda: trainer.train_step(batch))
-    check(len(captured["blend_forward"]) == 1
-          and len(captured["blend_backward"]) == 1
-          and len(captured["segment_sum_sorted"]) == 1,
-          "a BLDG step must call K1, K2 and K3 (per Gaussian) once each: "
-          f"{ {k: len(v) for k, v in captured.items()} }")
-    k1 = k1_measure("BLDG step", captured["blend_forward"][0])
-    log(f"BLDG step: the render reaches {k1['touched_share']:.4f} of the "
+    B = batch["pts"].shape[0]
+    check(all(len(v) == B for v in captured.values()),
+          f"a BLDG step must call K1, K2 and K3 (per Gaussian) once a "
+          f"sample: { {k: len(v) for k, v in captured.items()} }")
+    k1 = k1_measure(use, captured["blend_forward"][0])
+    log(f"{use}: the render reaches {k1['touched_share']:.4f} of the "
         "crop's pixels")
-    k2 = k2_measure("BLDG step", captured["blend_backward"][0])
-    k3 = k3_measure("BLDG step, per Gaussian",
+    k2 = k2_measure(use, captured["blend_backward"][0])
+    k3 = k3_measure(f"{use}, per Gaussian",
                     *captured["segment_sum_sorted"][0])
     del k3["t_bytes"], k3["t_ops"]
     return {"blend_fwd": k1, "blend_bwd": k2, "segment_sum": k3}
 
 
 def phase_bldg_train(trainer, batch, eval_batch, n_warm: int = 2,
-                     n_timed: int = 5) -> dict:
+                     n_timed: int = 5, what: str = "BLDG") -> dict:
     """The full-width BLDG train step: warm-up, then timed steps with the
     launch counts set to 0 just before them, the stage split (PTv3 timed
     by hooks on ``pt_net``), the peak memory; then one eval step that must
-    leave PTv3's running statistics as they are."""
+    leave PTv3's running statistics as they are.  Returns the launches
+    with the median step, PTv3 stage and backward stage and the peak."""
     import torch
 
+    from gaussiancity_tpu_torch.models import ptv3
     from gaussiancity_tpu_torch.ops import hash_grid_bwd
     from gaussiancity_tpu_torch.ops.rasterizer import blend
 
     gen = trainer.generator
     net = gen.pt_net.net
+    drop = max(b.drop_path for b in net.modules()
+               if isinstance(b, ptv3.PTBlock))
     log(f"BLDG trainer: PTv3 enc {net.cfg.enc_channels} dec "
         f"{net.cfg.dec_channels} patches {net.cfg.enc_patch_size[0]}, drop "
-        f"path up to {net.enc4_block1.drop_path}, z {trainer.cfg.network.z_dim}"
-        f", {sum(p.numel() for p in gen.parameters())} generator weights")
+        f"path up to {drop}, z {trainer.cfg.network.z_dim}, "
+        f"{sum(p.numel() for p in gen.parameters())} generator weights")
 
     def snapshot():
         return {"PTv3 stem": net.embedding_stem.kernel.detach().clone(),
@@ -1834,13 +1922,14 @@ def phase_bldg_train(trainer, batch, eval_batch, n_warm: int = 2,
             step_ms.append((time.perf_counter() - t0) * 1e3)
             per_step = {name: fn.launches - counts[name]
                         for name, fn in counters.items()}
-            check(min(per_step.values()) >= 1
-                  and per_gaussian[0] - k3_before >= 1,
-                  f"BLDG step {i}: K1, K2 or K3 (per Gaussian) was not "
-                  f"launched ({per_step})")
+            B = batch["pts"].shape[0]
+            check(min(per_step.values()) >= B
+                  and per_gaussian[0] - k3_before >= B,
+                  f"{what} step {i}: K1, K2 or K3 (per Gaussian) was not "
+                  f"launched for every sample ({per_step})")
             after, stats_after = snapshot(), ptv3_stats(gen)
             m = {k: float(v) for k, v in m.items()}
-            log(f"BLDG step {i}: {step_ms[-1]:.2f} ms " + " ".join(
+            log(f"{what} step {i}: {step_ms[-1]:.2f} ms " + " ".join(
                 f"{k} {v:.5g}" for k, v in sorted(m.items())))
             for k, v in m.items():
                 check(np.isfinite(v), f"BLDG step {i}: {k} is not finite")
@@ -1866,23 +1955,27 @@ def phase_bldg_train(trainer, batch, eval_batch, n_warm: int = 2,
             h.remove()
     launches = {name: fn.launches for name, fn in counters.items()}
     launches["segment_sum_by_use"] = {"bldg_step": per_gaussian[0]}
-    log(f"launches on the {n_timed} timed BLDG steps: {launches}")
+    log(f"launches on the {n_timed} timed {what} steps: {launches}")
     check(per_gaussian[0] == launches["segment_sum"],
           "every K3 launch of a BLDG step must be the per-Gaussian one")
     med = float(np.median(step_ms))
-    log(f"BLDG train step: median {med:.2f} ms of {n_timed} (stage timers "
-        f"synchronise the device at each boundary); peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"{what} train step: median {med:.2f} ms of {n_timed} (stage "
+        f"timers synchronise the device at each boundary); peak device "
+        f"memory {peak:.2f} GiB")
     split = dict(trainer.stage_ms)
     split["ptv3"] = ptv3_ms
     split["sincos+mlp"] = [g - p for g, p in zip(split["generator"], ptv3_ms)]
     for stage, ms in split.items():
         log(f"  stage {stage:10s} " + " ".join(f"{v:9.2f}" for v in ms)
             + f"   median {float(np.median(ms)):9.2f} ms")
+    launches.update(median_ms=med, peak_gib=peak,
+                    ptv3_ms=float(np.median(ptv3_ms)),
+                    backward_ms=float(np.median(split["backward"])))
     stats = ptv3_stats(gen)
     metrics, fake = trainer.eval_step(eval_batch)
     Wt, Ht = trainer.cfg.dataset.test_crop_size
-    check(tuple(fake.shape) == (1, Ht, Wt, 3)
+    check(tuple(fake.shape) == (eval_batch["pts"].shape[0], Ht, Wt, 3)
           and np.isfinite(float(metrics["L1Loss"])),
           "the BLDG eval step must render the test crop")
     check(all(torch.equal(v, ptv3_stats(gen)[k]) for k, v in stats.items()),
@@ -2342,6 +2435,563 @@ def phase_cli_inference(city: str, ckpt_dirs: dict, device="cuda") -> dict:
     return uses
 
 
+# ---------------------------------------------------------------------------
+# the model-surface options: bf16 compute, batch size 2, LOCAL, PTv3
+# options, the oracle renderer, debug snapshots
+# ---------------------------------------------------------------------------
+
+BF16_ULP = 2.0 ** -8
+# bf16 steps card vs CPU: each tensor within 4 bf16 ulps of its largest
+# value, or within three times the distance of the CPU's bf16 result from
+# its float32 result.  That distance measures the bf16 rounding noise;
+# the card and the CPU each carry their own (they round after sums taken
+# in other orders), so their difference reaches about twice it, and the
+# largest entry of a second sample of it somewhat more
+BF16_STEP_ULPS = 4
+BF16_STEP_NOISE = 3
+# the first step's generator loss, card vs CPU in bf16, within this share
+# of the CPU's bf16-to-float32 distance: the forward rounds at the same
+# ops on both (measured ~0.003 of it), where a step in another precision
+# lands about the whole distance away (the control in phase 20)
+BF16_FWD_SHARE = 0.25
+PTV3_FWD_RTOL = 1e-4  # small PTv3 forwards card vs CPU, of the largest
+
+
+def bf16_config(cfg):
+    """``cfg`` with the generator and D / VGG computing in bfloat16."""
+    return cfg.replace(
+        network=cfg.network.replace(compute_dtype="bfloat16"),
+        train=cfg.train.replace(compute_dtype="bfloat16"))
+
+
+def local_config(cfg):
+    """``cfg`` with the LOCAL encoder in place of the GLOBAL one."""
+    return cfg.replace(network=cfg.network.replace(encoder="LOCAL"))
+
+
+def city_projection_maps(batch, projections, n_classes: int):
+    """The batch's projection maps filled with the synthetic city's
+    height field and segmentation, resampled (nearest) to the batch's map
+    size, and ``proj_tlp`` set so that the map's centre lies under the
+    camera: the LOCAL encoder then gives each point its own encoder
+    dimensions."""
+    import torch
+
+    r = projections["REST"]
+    P = batch["proj_hf"].shape[1]
+    pick = np.arange(P) * r["TD_HF"].shape[0] // P
+    hf = r["TD_HF"][np.ix_(pick, pick)].astype(np.float32)
+    seg = r["SEG"][np.ix_(pick, pick)] % n_classes
+    dev = batch["pts"].device
+    out = dict(batch)
+    out["proj_hf"] = torch.as_tensor(hf[None, :, :, None], device=dev)
+    out["proj_seg"] = torch.nn.functional.one_hot(
+        torch.as_tensor(seg[None], device=dev).long(), n_classes).float()
+    out["proj_tlp"] = torch.full((1, 2), -P / 2, device=dev)
+    return out
+
+
+def step_runs(cfg, make_batch, devices, seed: int, n_steps: int = 2):
+    """``n_steps`` train steps of ``cfg`` from the same seeded weights on
+    each device: per device, per step, (losses, gradients of G and D)."""
+    from gaussiancity_tpu_torch.models import ptv3
+    from gaussiancity_tpu_torch.training.step import Trainer
+
+    runs = {}
+    for dev in devices:
+        trainer = Trainer(cfg, device=dev, seed=seed)
+        ptv3.no_drop_path(trainer.generator)
+        batch = make_batch(dev)
+        steps = []
+        for _ in range(n_steps):
+            m = {k: float(v) for k, v in trainer.train_step(batch).items()}
+            steps.append((m, {f"{n}.{k}": p.grad.detach().cpu().clone()
+                              for n, mod in (("G", trainer.generator),
+                                             ("D", trainer.discriminator))
+                              for k, p in mod.named_parameters()}))
+        runs[dev] = steps
+    return runs
+
+
+def bf16_step_faults(card, cpu, cpu32) -> Tuple[List[str], float, str]:
+    """The limits that bf16 steps on the card break against the CPU's
+    (``BF16_STEP_ULPS``, ``BF16_STEP_NOISE``, ``BF16_FWD_SHARE``), the
+    noise measured by the CPU's float32 steps: (faults, worst gradient
+    error over its tolerance, where)."""
+    faults, worst, worst_name = [], 0.0, ""
+    for i, ((m_a, g_a), (m_b, g_b), (m_f, g_f)) in enumerate(
+            zip(card, cpu, cpu32)):
+        for k, v in m_b.items():
+            tol = max(1e-2 * abs(v), BF16_STEP_NOISE * abs(v - m_f[k]),
+                      1e-6)
+            if not (np.isfinite(m_a[k]) and abs(m_a[k] - v) <= tol):
+                faults.append(f"step {i} {k}: card {m_a[k]} vs CPU {v}")
+        if i == 0:
+            noise = abs(m_b["GenLoss"] - m_f["GenLoss"])
+            err = abs(m_a["GenLoss"] - m_b["GenLoss"])
+            log(f"  step 0 GenLoss card vs CPU {err:.3e}, "
+                f"{err / noise:.4f} of the bf16-to-float32 distance "
+                f"{noise:.3e} (limit {BF16_FWD_SHARE})")
+            if not (noise > 1e-5 * abs(m_f["GenLoss"])
+                    and err <= BF16_FWD_SHARE * noise):
+                faults.append(f"step 0 GenLoss: card {m_a['GenLoss']} vs "
+                              f"CPU {m_b['GenLoss']}, float32 "
+                              f"{m_f['GenLoss']}")
+        for name, want in g_b.items():
+            noise = float((want - g_f[name]).abs().max())
+            scale = float(want.abs().max())
+            err = float((g_a[name] - want).abs().max())
+            tol = max(BF16_STEP_ULPS * BF16_ULP * scale,
+                      BF16_STEP_NOISE * noise)
+            if tol > 0 and err / tol > worst:
+                worst, worst_name = err / tol, f"step {i} {name}"
+            if not err <= tol:
+                faults.append(f"step {i} gradient {name}: max|d| "
+                              f"{err:.3e}, bf16 noise {noise:.3e}, scale "
+                              f"{scale:.3e}")
+    return faults, worst, worst_name
+
+
+def check_bf16_steps(what: str, card, cpu, cpu32, card32) -> None:
+    """bf16 steps on the card against the CPU's within every limit of
+    ``bf16_step_faults``; and, as a control, the card's float32 steps
+    against the CPU's bf16 ones must break one."""
+    faults, worst, worst_name = bf16_step_faults(card, cpu, cpu32)
+    for (m_a, _), (m_b, _), (m_f, _) in zip(card, cpu, cpu32):
+        log(f"{what} card vs CPU: GenLoss {m_a['GenLoss']:.6f} / "
+            f"{m_b['GenLoss']:.6f} (float32 {m_f['GenLoss']:.6f}), DisLoss "
+            f"{m_a['DisLoss']:.6f} / {m_b['DisLoss']:.6f}")
+    check(not faults, f"{what} card vs CPU: {faults[:3]}")
+    log(f"{what} gradients card vs CPU: worst max|d| / tolerance "
+        f"{worst:.3f} ({worst_name})")
+    log(f"{what} control, float32 steps on the card against the CPU's "
+        "bf16:")
+    control, _, _ = bf16_step_faults(card32, cpu, cpu32)
+    log(f"{what} control breaks {len(control)} limits: {control[:3]}")
+    check(len(control) > 0, f"{what}: the card's float32 steps pass the "
+          "bf16 limits: they cannot tell the precision")
+
+
+def tiny_bldg_batch2(cfg, dev):
+    """Two tiny BLDG samples, the second with a quarter of its rows
+    masked and its camera moved."""
+    import torch
+
+    from gaussiancity_tpu_torch.testing import tiny_bldg_batch
+
+    one, two = (tiny_bldg_batch(cfg, 256, seed=s) for s in (4, 5))
+    batch = {k: np.concatenate([one[k], two[k]]) for k in one}
+    batch["pts_mask"][1, 192:] = False
+    batch["cam_pos"][1] = [0.0, 0.5, 0.0]
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+
+def phase_small_surface(device, projections):
+    """The model-surface options at tiny widths, card against CPU: a bf16
+    REST step and a bf16 BLDG step at batch size 2 (held to the CPU
+    within the bf16 noise that the CPU's float32 steps measure), a LOCAL
+    REST step (float32, phase 8's tolerances), the small PTv3 with
+    ``enable_rpe`` and with the sorted-merge search, ``naive_render``
+    against ``rasterize`` (K1), and ``rasterize_checked`` on a NaN colour
+    and a NaN mean."""
+    import torch
+
+    from gaussiancity_tpu_torch.config import PTv3Config
+    from gaussiancity_tpu_torch.models import ptv3
+    from gaussiancity_tpu_torch.ops.rasterizer import blend, debug
+    from gaussiancity_tpu_torch.ops.rasterizer import rasterize
+    from gaussiancity_tpu_torch.ops.rasterizer.naive import naive_render
+    from gaussiancity_tpu_torch.testing import TINY_PTV3
+    from gaussiancity_tpu_torch.utils import helpers
+
+    rest = tiny_train_config()
+
+    def rest_batch(dev):
+        return synthetic_rest_batch(rest, 256, seed=4, device=dev)
+
+    runs = step_runs(bf16_config(rest), rest_batch, (device, "cpu"), 3)
+    ref = step_runs(rest, rest_batch, (device, "cpu"), 3)
+    check_bf16_steps("tiny bf16 REST", runs[device], runs["cpu"],
+                     ref["cpu"], ref[device])
+
+    bldg = tiny_bldg_config()
+    bldg = bldg.replace(train=bldg.train.replace(batch_size=2))
+    table = torch.randn((helpers.MAX_N_INSTANCES, 16),
+                        generator=torch.Generator().manual_seed(7))
+    get_z = helpers.get_z
+    helpers.get_z = lambda gen, ins, z_dim: table.to(ins.device)[
+        ins.long() % table.shape[0]]
+    try:
+        def b2(dev):
+            return tiny_bldg_batch2(bldg, dev)
+        runs = step_runs(bf16_config(bldg), b2, (device, "cpu"), 3)
+        ref = step_runs(bldg, b2, (device, "cpu"), 3)
+    finally:
+        helpers.get_z = get_z
+    check_bf16_steps("tiny bf16 BLDG B=2", runs[device], runs["cpu"],
+                     ref["cpu"], ref[device])
+
+    local = local_config(rest)
+    runs = phase_small_train(
+        device, local, lambda dev: city_projection_maps(
+            rest_batch(dev), projections, local.dataset.n_classes),
+        "tiny LOCAL step")
+    enc = runs["cpu"][0][1]["G.proj_encoder.hf_conv.weight"]
+    check(float(enc.abs().max()) > 0,
+          "the tiny LOCAL step gives its encoder no gradient")
+
+    rng = np.random.default_rng(8)
+    feat = rng.normal(size=(1, 300, 6)).astype(np.float32)
+    coord = rng.uniform(-0.2, 0.2, (1, 300, 3)).astype(np.float32)
+    outs = {}
+    for change in ("rpe", "sorted_merge", "dense"):
+        kw = {"rpe": dict(enable_rpe=True),
+              "sorted_merge": dict(dense_nbr_extent=0)}.get(change, {})
+        torch.manual_seed(0)
+        model = ptv3.PointTransformerV3(PTv3Config(**TINY_PTV3, **kw), 6)
+        for m in model.modules():
+            if isinstance(m, ptv3.PatchAttention) and change == "rpe":
+                with torch.no_grad():
+                    m.rpe_table.normal_(0, 0.5)
+        for dev in (device, "cpu"):
+            with torch.no_grad():
+                outs[change, dev] = model.to(dev).eval()(
+                    torch.as_tensor(feat, device=dev),
+                    torch.as_tensor(coord, device=dev)).cpu()
+        err = float((outs[change, device] - outs[change, "cpu"]).abs().max())
+        scale = float(outs[change, "cpu"].abs().max())
+        log(f"small PTv3 ({change}) card vs CPU: max|d| {err:.3e} of "
+            f"{scale:.3e}")
+        check(err <= PTV3_FWD_RTOL * scale and scale > 0.1,
+              f"small PTv3 ({change}) card vs CPU: max|d| {err:.3e}")
+    check(torch.equal(outs["sorted_merge", device], outs["dense", device]),
+          "the sorted-merge search gives another PTv3 output than the "
+          "dense one on the card")
+    check(float((outs["rpe", "cpu"] - outs["dense", "cpu"]).abs().max())
+          > 1e-3, "the RPE table changed nothing")
+
+    cam, scene = small_scene(device)
+    rc = small_config().rasterizer
+    n0 = blend.blend_forward.launches
+    out = rasterize(*scene, cam, rc)
+    img, final_T = naive_render(*scene, cam, rc)
+    torch.cuda.synchronize()
+    err = max(float((out.image - img).abs().max()),
+              float((out.final_T - final_T).abs().max()))
+    log(f"naive_render vs rasterize (K1) on the card: max|d| {err:.3e}, "
+        f"image std {float(img.std()):.3f}")
+    check(blend.blend_forward.launches == n0 + 1,
+          "rasterize did not launch K1")
+    check(err <= K1_TOL and float(img.std()) > 0.01,
+          "naive_render disagrees with rasterize on the card")
+    path = os.path.join(cli_root(), "snapshot_fw.pkl")
+    nan_mean = [a.clone() for a in scene]
+    nan_mean[0][0, 1] = float("nan")
+    out = debug.rasterize_checked(*nan_mean, cam, rc, snapshot_path=path)
+    check(int(out.radii[0]) == 0 and not os.path.exists(path),
+          "a NaN mean must be culled, with no snapshot")
+    scene[4] = scene[4].clone()
+    scene[4][0, 1] = float("nan")
+    try:
+        debug.rasterize_checked(*scene, cam, rc, snapshot_path=path)
+        check(False, "rasterize_checked did not raise on a NaN colour")
+    except FloatingPointError as e:
+        log(f"rasterize_checked on a NaN colour raised: {e}")
+    snap = debug.load_snapshot(path)
+    check(np.isnan(snap["arrays"]["colors"][0, 1])
+          and snap["cam"].view_matrix.device.type == "cpu",
+          "the snapshot does not hold the render's inputs")
+    log(f"snapshot: {sorted(snap['arrays'])}, {os.path.getsize(path)} B")
+
+
+def small_scene(device):
+    """64 seeded Gaussians in front of small_config()'s 128x64 camera."""
+    import torch
+
+    from gaussiancity_tpu_torch.camera import CameraModel
+
+    ds = small_config().dataset
+    cam = CameraModel(np.asarray(ds.cam_k).reshape(3, 3),
+                      ds.sensor_size).params(
+        np.zeros(3), np.array([0.0, 0.0, 0.0, 1.0]), device=device)
+    rng = np.random.default_rng(9)
+    n = 64
+    d = rng.uniform(4.0, 20.0, n)
+    arrays = [np.stack([d, rng.uniform(-1, 1, n) * d,
+                        rng.uniform(-0.5, 0.5, n) * d], -1),
+              rng.uniform(0.2, 0.9, n), rng.uniform(0.1, 0.8, (n, 3)),
+              np.tile([1.0, 0.0, 0.0, 0.0], (n, 1)), rng.uniform(0, 1, (n, 3))]
+    arrays[0][0] = (6.0, 0.0, 0.0)  # Gaussian 0 in the middle of the view
+    return cam, [torch.as_tensor(a, dtype=torch.float32, device=device)
+                 for a in arrays]
+
+
+def hash_grid_uses(captured, use: str) -> dict:
+    """G1, G1b and K3 (both uses) against their plain versions on one
+    captured REST step: their use entries by kernel name."""
+    g1 = g1_use(phase_g1(use, captured["hash_encode_fwd"][0]))
+    g1b = phase_g1b(captured["hash_encode_bwd"][0])
+    g1b = {k: g1b[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                               "bound_by", "distinct_rows")}
+    uses = k3_uses(captured["segment_sum"], use)
+    for u in uses.values():
+        del u["t_bytes"], u["t_ops"]
+    return {"hash_encode_fwd": g1, "hash_encode_bwd": g1b,
+            "segment_sum": uses}
+
+
+def add_use(kernels, name: str, use: str, entry: dict, launches: int):
+    """Put ``entry`` under "uses" of kernel ``name``, with its launches
+    on that use's timed pass."""
+    k = next(k for k in kernels if k["name"] == name)
+    k.setdefault("uses", {})[use] = {**entry, "launches": launches}
+
+
+def phase_rest_bf16(kernels, batch, profiling: bool = False,
+                    device="cuda") -> dict:
+    """The full-width REST step in bf16 (phase 9's recipe, seed and
+    batch): one step whose K1, K2, K3, G1 and G1b inputs are kept and held
+    against the plain versions, then 2 warm-up and 5 timed steps
+    (``--profile``: the device's busy share)."""
+    import torch
+
+    from gaussiancity_tpu_torch.training.step import Trainer
+
+    trainer = Trainer(bf16_config(rest_train_config()), device=device,
+                      seed=0)
+    captured = capture_step_inputs(trainer, batch)
+    entries = {"blend_fwd": k1_measure("bf16 REST step",
+                                       captured["blend_fwd"]),
+               "blend_bwd": k2_measure("bf16 REST step",
+                                       captured["blend_bwd"]),
+               **hash_grid_uses(captured, "bf16 REST step")}
+    entries["blend_fwd"].pop("touched_share")
+    del captured
+    step = phase_train(trainer, batch)
+    for name, e in entries.items():
+        if name == "segment_sum":
+            for kind, u in e.items():
+                add_use(kernels, name, f"rest_step_bf16_{kind}", u,
+                        step["segment_sum_by_use"][kind])
+        else:
+            add_use(kernels, name, "rest_step_bf16", e, step[name])
+    if profiling:
+        phase_train_profile(trainer, batch)
+    del trainer
+    torch.cuda.empty_cache()
+    return step
+
+
+def phase_bldg_b2(kernels, projections, centers, profiling: bool = False,
+                  device="cuda") -> dict:
+    """The full-width BLDG step at batch size 2 (building 172 and the
+    next largest, each 16,384 rows with the point mask), in float32 and
+    in bf16: per dtype one step whose K1, K2 and K3 inputs are held
+    against the plain versions, 2 warm-up and 5 timed steps (PTv3 apart),
+    the peak memory, an eval step, the device's busy share under
+    ``--profile``."""
+    import torch
+
+    from gaussiancity_tpu_torch.training.step import Trainer
+
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = bldg_train_config()
+        cfg = cfg.replace(train=cfg.train.replace(batch_size=2))
+        if dtype == "bfloat16":
+            cfg = bf16_config(cfg)
+        trainer = Trainer(cfg, device=device, seed=1)
+        parts = [building_batch(cfg, projections, centers, device, rank=r)
+                 for r in (0, 1)]
+        batch = stack_batches([p[0] for p in parts])
+        eval_batch = stack_batches([p[1] for p in parts])
+        log(f"BLDG B=2 ({dtype}): valid rows per sample "
+            f"{batch['pts_mask'].sum(dim=1).tolist()}")
+        tag = "bldg_step_b2_" + ("f32" if dtype == "float32" else "bf16")
+        uses = phase_bldg_kernels(trainer, batch, use=f"BLDG B=2 {dtype}")
+        step = phase_bldg_train(trainer, batch, eval_batch,
+                                what=f"BLDG B=2 {dtype}")
+        uses["blend_fwd"].pop("touched_share")
+        for name, e in uses.items():
+            add_use(kernels, name, tag, e,
+                    step["segment_sum_by_use"]["bldg_step"]
+                    if name == "segment_sum" else step[name])
+        if profiling:
+            phase_train_profile(trainer, batch)
+        out[dtype] = step
+        del trainer, batch, eval_batch, parts
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_local_step(kernels, batch, projections, profiling: bool = False,
+                     device="cuda") -> dict:
+    """The full-width REST step with the LOCAL encoder on phase 9's batch
+    with the city's projection maps: one step whose G1, G1b (with the
+    input gradient) and K3 inputs are held against the plain versions,
+    timed, with their bounds; then 2 warm-up and 5 timed steps
+    (``--profile``: the device's busy share)."""
+    import torch
+
+    from gaussiancity_tpu_torch.training.step import Trainer
+
+    cfg = local_config(rest_train_config())
+    trainer = Trainer(cfg, device=device, seed=2)
+    batch = city_projection_maps(batch, projections, cfg.dataset.n_classes)
+    captured = capture_step_inputs(trainer, batch)
+    x = captured["hash_encode_fwd"][0][0]
+    spread = float(x[:, :2].std(dim=0).min())
+    log(f"LOCAL step: hash-grid inputs {tuple(x.shape)}, the encoder "
+        f"dimensions' spread over the points {spread:.4f}")
+    check(spread > 1e-3, "the LOCAL encoder dimensions do not vary")
+    entries = hash_grid_uses(captured, "LOCAL step")
+    del captured
+    step = phase_train(trainer, batch)
+    for name, e in entries.items():
+        if name == "segment_sum":
+            for kind, u in e.items():
+                add_use(kernels, name, f"local_step_{kind}", u,
+                        step["segment_sum_by_use"][kind])
+        else:
+            add_use(kernels, name, "local_step", e, step[name])
+    if profiling:
+        phase_train_profile(trainer, batch)
+    del trainer
+    torch.cuda.empty_cache()
+    return step
+
+
+def phase_ptv3_options(projections, centers, device="cuda"):
+    """PTv3 at the BLDG recipe's widths in eval on phase 14's 16,384
+    points: at every neighbour search of a forward (stem, and CPE at each
+    stage) the sorted-merge ``nb_idx`` and ``found`` equal to the dense
+    search's where found, both searches timed; the forward with each
+    search timed (outputs equal); a forward with ``enable_rpe`` (random
+    table) timed, with its peak memory."""
+    import torch
+
+    from gaussiancity_tpu_torch.models import ptv3
+    from gaussiancity_tpu_torch.models.generator import SinCosEncoder
+
+    cfg = bldg_train_config()
+    batch, _ = building_batch(cfg, projections, centers, device)
+    rel = batch["pts"][0, :, 5:8]
+    feat = SinCosEncoder(cfg.network.sin_cos_freq_bends)(rel)
+    torch.manual_seed(3)
+    dense = ptv3.PointTransformerV3(cfg.network.ptv3, feat.shape[1]).to(
+        device).eval()
+    calls = []
+    search = ptv3.subm_neighbors_dense
+
+    def keep(grid, valid, k, extent=256):
+        calls.append((grid, valid, k))
+        return search(grid, valid, k, extent)
+
+    ptv3.subm_neighbors_dense = keep
+    try:
+        with torch.no_grad():
+            out_dense = dense(feat[None], rel[None])
+    finally:
+        ptv3.subm_neighbors_dense = search
+    rows = []
+    for grid, valid, k in calls:
+        nb_d, f_d, _ = search(grid, valid, k, cfg.network.ptv3.dense_nbr_extent)
+        nb_s, f_s = ptv3.subm_neighbors(grid, valid, k)
+        torch.cuda.synchronize()
+        check(torch.equal(f_d, f_s) and torch.equal(nb_d[f_d], nb_s[f_s]),
+              f"sorted-merge neighbours differ from the dense ones (k={k}, "
+              f"{grid.shape[0]} points)")
+        ms_d = cuda_time_ms(lambda: search(
+            grid, valid, k, cfg.network.ptv3.dense_nbr_extent), iters=10)
+        ms_s = cuda_time_ms(lambda: ptv3.subm_neighbors(grid, valid, k),
+                            iters=10)
+        rows.append((grid.shape[0], k, float(f_s.float().mean()), ms_d,
+                     ms_s))
+        log(f"neighbours k={k} at {grid.shape[0]} points: found share "
+            f"{rows[-1][2]:.4f}, equal; dense {ms_d:.4f} ms, sorted merge "
+            f"{ms_s:.4f} ms")
+    check(len(calls) == 1 + len(cfg.network.ptv3.enc_depths),
+          f"expected a search per stage and the stem, got {len(calls)}")
+    sorted_net = ptv3.PointTransformerV3(
+        cfg.network.ptv3.replace(dense_nbr_extent=0), feat.shape[1]).to(
+        device).eval()
+    sorted_net.load_state_dict(dense.state_dict())
+    rpe = ptv3.PointTransformerV3(cfg.network.ptv3.replace(enable_rpe=True),
+                                  feat.shape[1]).to(device).eval()
+    rpe.load_state_dict(dense.state_dict(), strict=False)
+    res = {}
+    with torch.no_grad():
+        out_sorted = sorted_net(feat[None], rel[None])
+        check(torch.equal(out_sorted, out_dense),
+              "the sorted-merge PTv3 forward differs from the dense one")
+        for name, net in (("dense", dense), ("sorted_merge", sorted_net),
+                          ("rpe", rpe)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ms = cuda_time_ms(lambda: net(feat[None], rel[None]), iters=3,
+                              warmup=1)
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+            res[name] = (ms, peak)
+            log(f"PTv3 eval forward ({name}) at {feat.shape[0]} points: "
+                f"{ms:.2f} ms, peak {peak:.3f} GiB above its inputs")
+        out_rpe = rpe(feat[None], rel[None])
+    check(bool(torch.isfinite(out_rpe).all())
+          and float((out_rpe - out_dense).abs().max()) > 1e-4,
+          "the RPE forward is not finite or equals the plain one")
+    return {"searches": rows, "forward": res}
+
+
+def phase_bf16_frame(kernels, cfg, projections, centers, poses, lut,
+                     frames_f32, f32_median: float, device="cuda") -> dict:
+    """The two-model frame with both generators in bf16 (phase 11's
+    weights, scene and poses): its median against phase 11's float32
+    median, the per-pixel grey-level difference from phase 11's frames
+    (within 1 at >= 99 % of pixels, and not all equal: a float32 frame
+    would be), and K1 held against its plain version on the first
+    frame's inputs (use "bf16_frame")."""
+    import torch
+
+    from gaussiancity_tpu_torch.ops.rasterizer import blend
+
+    pipe = two_model_pipeline(cfg, device, compute_dtype="bfloat16")
+    launches, _, frames = phase_two_model_frame(
+        pipe, projections, centers, poses, lut, what="bf16 two-model frame")
+    captured = capture_calls(
+        [(blend, "blend_forward")],
+        lambda: pipe.render_trajectory(projections, centers, poses[:1],
+                                       style_lut=lut))
+    check(len(captured["blend_forward"]) == 1,
+          "the bf16 frame must call K1 once")
+    k1 = k1_measure("bf16 frame", captured["blend_forward"][0])
+    k1.pop("touched_share")
+    add_use(kernels, "blend_fwd", "bf16_frame", k1, launches["blend_fwd"])
+    del captured
+    diffs = []
+    for i, (a, b) in enumerate(zip(frames, frames_f32)):
+        d = np.abs(a.astype(np.int32) - b.astype(np.int32))
+        diffs.append(d)
+        log(f"bf16 frame {i} vs float32: mean {float(d.mean()):.4f}, "
+            f"equal {float((d == 0).mean()):.4f}, within 1 "
+            f"{float((d <= 1).mean()):.4f}, within 8 "
+            f"{float((d <= 8).mean()):.4f}, max {int(d.max())} grey levels")
+    d = np.stack(diffs)
+    log(f"two-model frame median: bf16 {launches['median_ms']:.2f} ms, "
+        f"float32 {f32_median:.2f} ms (phase 11, this call)")
+    check(float((d <= 1).mean()) >= 0.99,
+          "the bf16 frames differ from the float32 ones by more than one "
+          "grey level at over 1 % of pixels")
+    check(float((d > 0).mean()) >= 0.01,
+          "the bf16 frames equal the float32 ones at over 99 % of pixels: "
+          "they did not compute in bf16")
+    del pipe
+    torch.cuda.empty_cache()
+    launches.update(grey_mean=float(d.mean()),
+                    grey_within1=float((d <= 1).mean()),
+                    grey_max=int(d.max()))
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2381,8 +3031,8 @@ def run_phases(profiling: bool, t_start: float) -> int:
     pipe = city_pipeline(cfg, device)
     kernels.append(phase_raycast(pipe, projections, poses))
     phase_small_reference()
-    launches, g1_args = phase_frame(pipe, projections, centers, poses,
-                                    what="REST frame")
+    launches, g1_args, _ = phase_frame(pipe, projections, centers, poses,
+                                       what="REST frame")
     timed = [launches]
     if profiling:
         phase_profile(pipe, projections, centers, poses)
@@ -2393,8 +3043,8 @@ def run_phases(profiling: bool, t_start: float) -> int:
     phase_small_two_model()
     lut = get_style_lut(centers, 256, seed=0)
     pipe = two_model_pipeline(cfg, device)
-    launches, g1_frame_args = phase_two_model_frame(pipe, projections,
-                                                    centers, poses, lut)
+    launches, g1_frame_args, frames_f32 = phase_two_model_frame(
+        pipe, projections, centers, poses, lut)
     timed.append(launches)
     if profiling:
         phase_profile(pipe, projections, centers, poses, lut)
@@ -2408,8 +3058,8 @@ def run_phases(profiling: bool, t_start: float) -> int:
     log("the perceptual loss runs on seeded RANDOM VGG19 weights: the "
         "repository holds no converted ImageNet weights")
     trainer = Trainer(rest_train_config(), device=device, seed=0)
-    batch = synthetic_rest_batch(trainer.cfg, TRAIN_POINTS, seed=1,
-                                 device=device)
+    batch = rest_batch = synthetic_rest_batch(trainer.cfg, TRAIN_POINTS,
+                                              seed=1, device=device)
     captured = capture_step_inputs(trainer, batch)
     kernels += phase_grad_kernels(captured)
     g1["train_step"] = phase_g1("train step", captured["hash_encode_fwd"][0])
@@ -2475,6 +3125,44 @@ def run_phases(profiling: bool, t_start: float) -> int:
             k.setdefault("uses", {})["cli_frame"] = cli_uses[k["name"]]
     log(f"phase time: CLI --inference {time.perf_counter() - t_phase:.1f} s")
     kernels.append(phase_k4(device))
+    t_phase = time.perf_counter()
+    phase_small_surface(device, projections)
+    log(f"phase time: small model-surface checks card vs CPU "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    rest_bf16 = phase_rest_bf16(kernels, rest_batch, profiling)
+    timed.append(rest_bf16)
+    log(f"REST step median: bf16 {rest_bf16['median_ms']:.2f} ms, peak "
+        f"{rest_bf16['peak_gib']:.2f} GiB; float32 (phase 9, this call) "
+        f"{rest_step['median_ms']:.2f} ms, peak "
+        f"{rest_step['peak_gib']:.2f} GiB")
+    log(f"phase time: bf16 REST step {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    b2 = phase_bldg_b2(kernels, projections, centers, profiling)
+    timed += list(b2.values())
+    log("BLDG step medians: B=1 float32 (phase 14) "
+        f"{bldg_step['median_ms']:.2f} ms, peak {bldg_step['peak_gib']:.2f} "
+        "GiB; " + "; ".join(
+            f"B=2 {k} {v['median_ms']:.2f} ms (PTv3 {v['ptv3_ms']:.2f}, "
+            f"backward {v['backward_ms']:.2f}), peak {v['peak_gib']:.2f} GiB"
+            for k, v in b2.items()))
+    log(f"phase time: BLDG steps at B=2 {time.perf_counter() - t_phase:.1f}"
+        " s")
+    t_phase = time.perf_counter()
+    local = phase_local_step(kernels, rest_batch, projections, profiling)
+    timed.append(local)
+    log(f"LOCAL REST step median {local['median_ms']:.2f} ms, peak "
+        f"{local['peak_gib']:.2f} GiB")
+    log(f"phase time: LOCAL REST step {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    phase_ptv3_options(projections, centers)
+    log(f"phase time: PTv3 options {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    timed.append(phase_bf16_frame(kernels, cfg, projections, centers,
+                                  poses, lut, frames_f32,
+                                  timed[1]["median_ms"]))
+    log(f"phase time: bf16 two-model frame "
+        f"{time.perf_counter() - t_phase:.1f} s")
     # launches on the timed passes: REST frame, two-model frame, REST
     # train steps, BLDG train steps; K4's are those of its probe's timed
     # drive; per use, K3's from the REST train steps, G1's from the pass

@@ -4,10 +4,11 @@ the port's ``state_dict``, and the port's own generator checkpoints.
 
 ``generator_state_from_flax`` takes the tree as nested dicts of numpy
 arrays.  Dense kernels ``[in, out]`` become ``[out, in]``, conv kernels
-HWIO become OIHW, and the ``ModLinear`` and hash-table arrays are copied
-as they are (the port keeps the JAX package's ``[L, R_max, C]`` table).
+HWIO become OIHW, transposed-conv kernels HWIO become [in, out, kh, kw]
+(not flipped), GroupNorm scale and bias become weight and bias, and the
+``ModLinear`` and hash-table arrays are copied as they are (the port keeps the JAX package's ``[L, R_max, C]`` table).
 The PTv3 subtree (``pt_net``) keeps its names: its ``SubMConv`` kernels
-``[K^3, C, F]`` are copied as they are, ``LayerNorm_0`` scale and bias
+``[K^3, C, F]`` and the attention's ``rpe_table`` are copied as they are, ``LayerNorm_0`` scale and bias
 become the ``nn.LayerNorm`` weight and bias, and the ``MaskedBatchNorm``
 running ``mean`` / ``var`` come from the ``batch_stats`` collection.
 ``load_train_state`` carries a whole JAX ``TrainState`` (without Adam's
@@ -42,6 +43,34 @@ def _conv(p: Mapping, prefix: str, out: Dict[str, torch.Tensor]) -> None:
         np.asarray(conv["kernel"]).transpose(3, 2, 0, 1))
     if "bias" in conv:
         out[f"{prefix}.bias"] = _t(conv["bias"])
+
+
+def _group_norm(p: Mapping, prefix: str,
+                out: Dict[str, torch.Tensor]) -> None:
+    out[f"{prefix}.weight"] = _t(p["scale"])
+    out[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _local_encoder(enc: Mapping, prefix: str,
+                   out: Dict[str, torch.Tensor]) -> None:
+    """The Flax ``LocalEncoder`` subtree -> the port's names."""
+    _conv(enc["TorchConv_0"], f"{prefix}.hf_conv", out)
+    _conv(enc["TorchConv_1"], f"{prefix}.seg_conv", out)
+    _group_norm(enc["GroupNorm_0"], f"{prefix}.norm", out)
+    for i in range(3):
+        blk, name = enc[f"ResConvBlock_{i}"], f"{prefix}.block{i + 1}"
+        for j, (gn, conv) in enumerate((("gn1", "conv1"), ("gn2", "conv2"),
+                                        ("gn3", "conv3"),
+                                        ("gn_res", "conv_res"))):
+            if f"TorchConv_{j}" in blk:
+                _group_norm(blk[f"GroupNorm_{j}"], f"{name}.{gn}", out)
+                _conv(blk[f"TorchConv_{j}"], f"{name}.{conv}", out)
+    for i in range(2):
+        p = enc[f"TorchConvTranspose_{i}"]
+        out[f"{prefix}.up{i + 1}.weight"] = _t(
+            np.asarray(p["kernel"]).transpose(2, 3, 0, 1))
+        out[f"{prefix}.up{i + 1}.bias"] = _t(p["bias"])
+    _conv(enc["TorchConv_2"], f"{prefix}.out_conv", out)
 
 
 _MODLINEAR = ("weight", "weight_alpha", "bias_alpha", "weight_beta",
@@ -94,8 +123,8 @@ def generator_state_from_flax(variables_np: Mapping,
             _conv(blk["TorchConv_1"], f"proj_encoder.blocks.{i}.conv2", out)
         _dense(enc["TorchDense_0"], "proj_encoder.fc1", out)
         _dense(enc["TorchDense_1"], "proj_encoder.fc2", out)
-    elif cfg.encoder is not None:
-        raise NotImplementedError(f"encoder {cfg.encoder!r} is not ported")
+    elif cfg.encoder == "LOCAL":
+        _local_encoder(params_np["proj_encoder"], "proj_encoder", out)
     if cfg.pos_emd == "HASH_GRID":
         out["pos_encoder.embeddings"] = _t(
             params_np["pos_encoder"]["embeddings"])

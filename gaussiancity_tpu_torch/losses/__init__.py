@@ -4,6 +4,10 @@
 import torch
 
 from gaussiancity_tpu_torch.losses.gan import gan_loss  # noqa: F401
+from gaussiancity_tpu_torch.losses.perceptual import (  # noqa: F401
+    PerceptualLoss)
+from gaussiancity_tpu_torch.losses.smoothness import (  # noqa: F401
+    smoothness_loss)
 
 
 def masked_l1(a: torch.Tensor, b: torch.Tensor,

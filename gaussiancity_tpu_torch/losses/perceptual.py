@@ -5,9 +5,11 @@ losses/perceptual.py:16-235).
 
 A VGG19 (or VGG16) trunk of 3x3 SAME convs, ReLU and 2x2 max pools that
 stops at the last wanted layer, ImageNet renormalization of [-1, 1]
-inputs, and the weighted L1 distance of the named relu activations at one
-scale (the JAX package's defaults; its L2 and multi-scale options have no
-caller).  The
+inputs, and the weighted L1 (``criterion="l1"``) or squared
+(``"l2"``) distance of the named relu activations, at ``num_scales``
+scales (each the last one's 2x2 average pool).  With a compute ``dtype``
+(bfloat16) the convolutions compute in it, as ``nn.Conv(dtype=...)`` does
+in the JAX package, and the feature differences are taken in float32.  The
 weights come from the same ``.npz`` file as the JAX package's
 (``GAUSSIANCITY_VGG19_NPZ``, keys ``conv_{s}_{c}/kernel`` in HWIO and
 ``conv_{s}_{c}/bias``); without it the trunk keeps its seeded random
@@ -27,6 +29,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gaussiancity_tpu_torch.models.layers import conv2d
+
 _VGG19_STAGES = ((64, 2), (128, 2), (256, 4), (512, 4), (512, 4))
 _VGG16_STAGES = ((64, 2), (128, 2), (256, 3), (512, 3), (512, 3))
 
@@ -43,8 +47,10 @@ class VGGFeatures(nn.Module):
 
     def __init__(self, stages: Tuple[Tuple[int, int], ...] = _VGG19_STAGES,
                  wanted: Sequence[str] = ("relu_3_1", "relu_4_1",
-                                          "relu_5_1")):
+                                          "relu_5_1"),
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.compute_dtype = dtype
         self.wanted = tuple(wanted)
         self.plan = []  # (name, pool after) in evaluation order
         in_ch = 3
@@ -70,7 +76,9 @@ class VGGFeatures(nn.Module):
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         out = {}
         for name, pool in self.plan:
-            x = F.relu(getattr(self, name)(x))
+            conv = getattr(self, name)
+            x = F.relu(conv2d(x, conv.weight, conv.bias, self.compute_dtype,
+                              1, 1))
             relu = "relu" + name[4:]
             if relu in self.wanted:
                 out[relu] = x
@@ -93,26 +101,45 @@ class PerceptualLoss(nn.Module):
     def __init__(self, network: str = "vgg19",
                  layers: Sequence[str] = ("relu_3_1", "relu_4_1",
                                           "relu_5_1"),
-                 weights: Optional[Sequence[float]] = None):
+                 weights: Optional[Sequence[float]] = None,
+                 criterion: str = "l1", num_scales: int = 1,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        if criterion not in ("l1", "l2"):
+            raise ValueError(f"unknown criterion {criterion!r}")
+        self.criterion = criterion
+        self.num_scales = num_scales
         self.layers = tuple(layers)
         self.weights = (tuple(weights) if weights is not None
                         else (1.0,) * len(self.layers))
         if len(self.layers) != len(self.weights):
             raise ValueError("one weight per layer")
         stages = _VGG19_STAGES if network == "vgg19" else _VGG16_STAGES
-        self.model = VGGFeatures(stages, self.layers)
+        self.model = VGGFeatures(stages, self.layers, dtype)
         self.model.requires_grad_(False)
 
     def forward(self, inp: torch.Tensor, target: torch.Tensor
                 ) -> torch.Tensor:
-        fi = self.model(normalize_imagenet(inp).permute(0, 3, 1, 2))
-        with torch.no_grad():
-            ft = self.model(normalize_imagenet(target).permute(0, 3, 1, 2))
         loss = inp.new_zeros(())
-        for layer, w in zip(self.layers, self.weights):
-            loss = loss + w * (fi[layer] - ft[layer]).abs().mean()
+        for scale in range(self.num_scales):
+            fi = self.model(normalize_imagenet(inp).permute(0, 3, 1, 2))
+            with torch.no_grad():
+                ft = self.model(normalize_imagenet(target).permute(0, 3, 1,
+                                                                   2))
+            for layer, w in zip(self.layers, self.weights):
+                diff = fi[layer].float() - ft[layer].float()
+                loss = loss + w * (diff.abs().mean() if self.criterion == "l1"
+                                   else (diff ** 2).mean())
+            if scale != self.num_scales - 1:
+                inp, target = _downsample2x(inp), _downsample2x(target)
         return loss
+
+
+def _downsample2x(x: torch.Tensor) -> torch.Tensor:
+    """NHWC 2x2 average pool: torch's ``F.interpolate(scale_factor=0.5,
+    bilinear, align_corners=False)``, which upstream takes, samples each
+    output exactly between four inputs."""
+    return F.avg_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
 
 
 def load_vgg19_npz(path: str, model: VGGFeatures) -> None:

@@ -16,6 +16,14 @@ Spectral norm follows flax's ``SpectralNorm`` (the JAX package's), not
   + 1e-12)``, and stores the new ``u`` and ``sigma`` (the train step's
   ``update_sn=True`` on every application); ``u`` and ``v`` are detached
   and the gradient flows through ``sigma = v W u^T``.
+
+With a compute ``dtype`` (bfloat16, the JAX package's
+``train.compute_dtype``) the spectral-norm convolutions compute in it:
+the power iteration and the division by sigma stay float32 (flax's
+``SpectralNorm`` works on the float32 parameters), then input, kernel and
+bias are cast and the bias is added after the convolution, as
+``nn.Conv(dtype=...)`` does.  The FPN's upsampling follows the features'
+dtype, and the output conv runs on the float32 copy of its input.
 """
 
 from __future__ import annotations
@@ -28,6 +36,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gaussiancity_tpu_torch.models.layers import conv2d, leaky_relu
+
 SN_EPS = 1e-12
 
 
@@ -35,17 +45,14 @@ def _l2_normalize(x: torch.Tensor) -> torch.Tensor:
     return x * torch.rsqrt((x * x).sum() + SN_EPS)
 
 
-def _leaky_relu(x: torch.Tensor) -> torch.Tensor:
-    return F.leaky_relu(x, negative_slope=0.2)
-
-
 class SNConv(nn.Module):
     """Spectral-norm conv (3x3 with symmetric padding 1, or 1x1) followed
-    by a leaky ReLU(0.2)."""
+    by a leaky ReLU(0.2), computing in ``dtype``."""
 
     def __init__(self, in_channels: int, features: int, kernel: int,
-                 stride: int):
+                 stride: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.compute_dtype = dtype
         self.stride = stride
         self.padding = 1 if kernel > 1 else 0
         self.weight = nn.Parameter(
@@ -83,9 +90,9 @@ class SNConv(nn.Module):
         return w_mat.reshape(kh, kw, I, O).permute(3, 2, 0, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv2d(x, self.normalized_weight(), self.bias, self.stride,
-                     self.padding)
-        return _leaky_relu(y)
+        y = conv2d(x, self.normalized_weight(), self.bias,
+                   self.compute_dtype, self.stride, self.padding)
+        return leaky_relu(y)
 
 
 def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
@@ -110,8 +117,10 @@ def resize_linear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     """NCHW -> [N, C, *size], the JAX package's ``jax.image.resize(...,
     "linear"/"bilinear")`` (separable, half-pixel, antialiased)."""
     H, W = x.shape[-2:]
-    wh = torch.as_tensor(_resize_weights(H, size[0]), device=x.device)
-    ww = torch.as_tensor(_resize_weights(W, size[1]), device=x.device)
+    wh = torch.as_tensor(_resize_weights(H, size[0]), device=x.device,
+                         dtype=x.dtype)
+    ww = torch.as_tensor(_resize_weights(W, size[1]), device=x.device,
+                         dtype=x.dtype)
     return torch.einsum("nchw,hH,wW->ncHW", x, wh, ww)
 
 
@@ -137,22 +146,24 @@ def smooth_interp(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
 class Discriminator(nn.Module):
     """N+1-class patch discriminator FPN.  forward(images [B, H, W, 3],
     seg_maps [B, H, W, n_classes], masks [B, H, W, 1]) -> {"pred", "label"}
-    (NHWC)."""
+    (NHWC); "pred" is float32 whatever the compute ``dtype``."""
 
-    def __init__(self, n_channel_base: int = 128, n_classes: int = 8):
+    def __init__(self, n_channel_base: int = 128, n_classes: int = 8,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         nc = n_channel_base
         self.n_classes = n_classes
-        self.enc1 = SNConv(3, nc, 3, 2)
-        self.enc2 = SNConv(nc, 2 * nc, 3, 2)
-        self.enc3 = SNConv(2 * nc, 4 * nc, 3, 2)
-        self.enc4 = SNConv(4 * nc, 8 * nc, 3, 2)
-        self.enc5 = SNConv(8 * nc, 8 * nc, 3, 2)
-        self.lat5 = SNConv(8 * nc, 4 * nc, 1, 1)
-        self.lat4 = SNConv(8 * nc, 4 * nc, 1, 1)
-        self.lat3 = SNConv(4 * nc, 4 * nc, 1, 1)
-        self.lat2 = SNConv(2 * nc, 4 * nc, 1, 1)
-        self.final2 = SNConv(4 * nc, 2 * nc, 3, 1)
+        dt = dict(dtype=dtype)
+        self.enc1 = SNConv(3, nc, 3, 2, **dt)
+        self.enc2 = SNConv(nc, 2 * nc, 3, 2, **dt)
+        self.enc3 = SNConv(2 * nc, 4 * nc, 3, 2, **dt)
+        self.enc4 = SNConv(4 * nc, 8 * nc, 3, 2, **dt)
+        self.enc5 = SNConv(8 * nc, 8 * nc, 3, 2, **dt)
+        self.lat5 = SNConv(8 * nc, 4 * nc, 1, 1, **dt)
+        self.lat4 = SNConv(8 * nc, 4 * nc, 1, 1, **dt)
+        self.lat3 = SNConv(4 * nc, 4 * nc, 1, 1, **dt)
+        self.lat2 = SNConv(2 * nc, 4 * nc, 1, 1, **dt)
+        self.final2 = SNConv(4 * nc, 2 * nc, 3, 1, **dt)
         self.output = nn.Conv2d(2 * nc, n_classes + 1, 1)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -179,7 +190,7 @@ class Discriminator(nn.Module):
         f23 = _up2x(f24, f13.shape[-2:]) + self.lat3(f13)
         f22 = _up2x(f23, f12.shape[-2:]) + self.lat2(f12)
         f32 = self.final2(f22)
-        pred = _leaky_relu(self.output(f32))
+        pred = leaky_relu(self.output(f32.float()))
         label = smooth_interp((seg_maps * masks).permute(0, 3, 1, 2),
                               f32.shape[-2:])
         return {"pred": pred.permute(0, 2, 3, 1),

@@ -26,14 +26,26 @@ one for the style-code table and one for the drop-path masks from
 (seed, step), as the JAX step splits ``rng_z, rng_dp`` from its key; a
 generator the caller passes serves both draws instead.
 
-Batch layout (batch size 1, tensors on the trainer's device, NHWC images
-as in the JAX package):
+``network.compute_dtype`` "bfloat16" builds the generator in bf16 and
+``train.compute_dtype`` "bfloat16" D and the perceptual loss, as the JAX
+``Trainer`` builds them (parameters, Adam and the losses stay float32).
 
-  pts [1, N, 9] (abs_xyz 0:3, scale 3, instance 4, rel_xyz 5:8, batch 8),
-  pts_mask [1, N], rgb [1, Hc, Wc, 3] in [-1, 1], seg [1, Hc, Wc, n_cls],
-  msk [1, Hc, Wc, 1], proj_hf [1, P, P, 1], proj_seg [1, P, P, n_cls],
-  optional proj_tlp [1, 2], cam_pos [1, 3], cam_quat [1, 4] (xyzw),
-  crp_xy [1, 2] int crop origin (x, y) in the flipped frame.
+Batch layout (tensors on the trainer's device, NHWC images as in the JAX
+package):
+
+  pts [B, N, 9] (abs_xyz 0:3, scale 3, instance 4, rel_xyz 5:8, batch 8),
+  pts_mask [B, N], rgb [B, Hc, Wc, 3] in [-1, 1], seg [B, Hc, Wc, n_cls],
+  msk [B, Hc, Wc, 1], proj_hf [B, P, P, 1], proj_seg [B, P, P, n_cls],
+  optional proj_tlp [B, 2], cam_pos [B, 3], cam_quat [B, 4] (xyzw),
+  crp_xy [B, 2] int crop origin (x, y) in the flipped frame.
+
+The JAX step takes B = 1 a device.  The port's step takes any B on one
+device, as upstream's training takes a batch: the generator runs the B
+samples together (PTv3's BatchNorm statistics span them), each sample is
+rendered with its own camera and crop, and the losses average over the
+batch.  At B = 1 this is the JAX step.  At B > 1 it is not the JAX
+package's batch over B devices, whose BatchNorm sees one sample a
+device: it is the JAX package's pieces run at B on one device.
 """
 
 from __future__ import annotations
@@ -53,6 +65,7 @@ from gaussiancity_tpu_torch.losses.perceptual import (
     PerceptualLoss, check_vgg_weights, load_vgg19_npz)
 from gaussiancity_tpu_torch.models.discriminator import Discriminator
 from gaussiancity_tpu_torch.models.generator import Generator
+from gaussiancity_tpu_torch.models.layers import compute_dtype
 from gaussiancity_tpu_torch.ops.rasterizer import rasterize_points14
 from gaussiancity_tpu_torch.utils import helpers
 
@@ -79,12 +92,7 @@ class Trainer:
         self.cfg = cfg
         self.seed = seed
         ds, tr = cfg.dataset, cfg.train
-        if tr.compute_dtype != "float32":
-            # the JAX Trainer builds D and the perceptual loss in bf16 for
-            # "bfloat16" (training/step.py:127-141); the port does not yet
-            raise NotImplementedError(
-                "the PyTorch port's Trainer computes in float32 only, got "
-                f"train.compute_dtype={tr.compute_dtype!r}")
+        dt = compute_dtype(tr.compute_dtype)
         self.device = resolve_device(device)
         vgg_npz = check_vgg_weights(tr.perceptual_loss_factor,
                                     tr.allow_random_vgg)
@@ -97,11 +105,12 @@ class Trainer:
         if self.use_disc:
             self.discriminator = Discriminator(
                 n_channel_base=cfg.network.dis_n_channel_base,
-                n_classes=ds.n_classes)
+                n_classes=ds.n_classes, dtype=dt)
             self.discriminator.reset_parameters(gen)
         self.ploss = PerceptualLoss(network=tr.perceptual_loss_model,
                                     layers=tr.perceptual_loss_layers,
-                                    weights=tr.perceptual_loss_weights)
+                                    weights=tr.perceptual_loss_weights,
+                                    dtype=dt)
         self.ploss.model.reset_parameters(gen)
         if vgg_npz is not None:
             load_vgg19_npz(vgg_npz, self.ploss.model)
@@ -181,9 +190,10 @@ class Trainer:
     def _render_fake(self, batch, feats, crop_size=None,
                      dp_generator: Optional[torch.Generator] = None
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Generator -> 14-channel Gaussians -> rasterize the crop window
-        -> flips.  Returns ([1, Hc, Wc, 3] NHWC, the rasterizer counters
-        and PTv3's overflow count, 0 without PTv3)."""
+        """Generator -> 14-channel Gaussians -> rasterize each sample's
+        crop window with its camera -> flips.  Returns ([B, Hc, Wc, 3]
+        NHWC, the rasterizer counters summed over the samples and PTv3's
+        overflow count, 0 without PTv3)."""
         t0 = self._now()
         attrs = self.generator(
             feats["proj_uv"], feats["rel_xyz"], None, feats["onehots"],
@@ -194,34 +204,38 @@ class Trainer:
                     torch.zeros((), dtype=torch.int64, device=self.device))
         gs_pts = helpers.get_gaussian_points(feats["abs_xyz"],
                                              feats["scales3"], attrs)
-        if gs_pts.shape[0] != 1:
-            raise ValueError("the train step takes batch size 1")
         t0 = self._record("generator", t0)
-        cam = self.camera.params_f32(batch["cam_pos"][0],
-                                     batch["cam_quat"][0])
         # render only the crop window; crp_xy addresses the flipped image
         Wc, Hc = crop_size or self.train_crop_size
         W, H = self.camera.sensor_size
-        x, y = (int(v) for v in batch["crp_xy"][0].tolist())
-        x, y = min(max(x, 0), W - Wc), min(max(y, 0), H - Hc)
-        xw = W - x - Wc if self.flip_lr else x
-        yw = H - y - Hc if self.flip_ud else y
         mask = feats["pts_mask"]
-        out = rasterize_points14(
-            gs_pts[0], cam, self.cfg.rasterizer,
-            valid=mask[0] if mask is not None else None,
-            window=(xw, yw, Wc, Hc))
-        img = out.image
-        if self.flip_lr:
-            img = img.flip(-1)
-        if self.flip_ud:
-            img = img.flip(-2)
-        diag = {"RasterDroppedPairs": out.n_dropped_pairs,
-                "RasterTruncated": out.n_truncated,
-                "RasterGradTruncated": out.n_grad_truncated,
+        imgs, outs = [], []
+        for b in range(gs_pts.shape[0]):
+            cam = self.camera.params_f32(batch["cam_pos"][b],
+                                         batch["cam_quat"][b])
+            x, y = (int(v) for v in batch["crp_xy"][b].tolist())
+            x, y = min(max(x, 0), W - Wc), min(max(y, 0), H - Hc)
+            xw = W - x - Wc if self.flip_lr else x
+            yw = H - y - Hc if self.flip_ud else y
+            out = rasterize_points14(
+                gs_pts[b], cam, self.cfg.rasterizer,
+                valid=mask[b] if mask is not None else None,
+                window=(xw, yw, Wc, Hc))
+            img = out.image
+            if self.flip_lr:
+                img = img.flip(-1)
+            if self.flip_ud:
+                img = img.flip(-2)
+            imgs.append(img)
+            outs.append(out)
+        diag = {"RasterDroppedPairs": sum(o.n_dropped_pairs for o in outs),
+                "RasterTruncated": sum(o.n_truncated for o in outs),
+                "RasterGradTruncated": sum(o.n_grad_truncated for o in outs),
                 "PTv3PoolOverflow": overflow}
         self._record("render", t0)
-        return img.permute(1, 2, 0)[None], diag
+        # an NHWC view of [B, 3, Hc, Wc] memory: D and VGG permute it back
+        # to contiguous NCHW, and their convolutions see that layout
+        return torch.stack(imgs).permute(0, 2, 3, 1), diag
 
     # ------------------------------------------------------------------
     # train / eval

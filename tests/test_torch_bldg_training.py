@@ -69,20 +69,19 @@ class _JPTv3NoDropPath(jptv3_mod.PointTransformerV3):
     drop_path: float = 0.0
 
 
-@pytest.fixture(scope="module")
-def jax_run():
-    """The JAX side, run once: init, two train steps (gradients captured
-    from the optimizers) and an eval step, drop path off, one z table."""
-    jcfg, cfg = bldg_configs()
+def run_jax(jcfg, cfg, batch_np, trainer_cls=JTrainer,
+            with_eval: bool = True) -> dict:
+    """The JAX side: init, two train steps (gradients captured from the
+    optimizers) and, ``with_eval``, an eval step; drop path off, one z
+    table (the port's ``_port_trainer`` gathers from the same)."""
     table = np.random.default_rng(9).normal(
         size=(helpers.MAX_N_INSTANCES, Z_DIM)).astype(np.float32)
-    batch_np = tiny_bldg_batch(cfg)
     mp = pytest.MonkeyPatch()
     mp.setattr(jptv3_mod, "PointTransformerV3", _JPTv3NoDropPath)
     mp.setattr(jhelpers, "get_z", lambda key, ins, z_dim, m=table.shape[0]:
                jnp.asarray(table)[(ins % m).astype(jnp.int32)])
     try:
-        jt = JTrainer(jcfg)
+        jt = trainer_cls(jcfg)
         batch = {k: jnp.asarray(v) for k, v in batch_np.items()}
         state = jt.init_state(jax.random.PRNGKey(0), batch)
         init = _np(state)
@@ -106,12 +105,19 @@ def jax_run():
         for _ in range(2):
             state, m, g, d = jstep(state, batch, jax.random.PRNGKey(2))
             steps.append(_np((state, m, g, d)))
-        ev_metrics, ev_fake = _np(jax.jit(jt.eval_step)(
-            state, batch, jax.random.PRNGKey(3)))
+        ev = (_np(jax.jit(jt.eval_step)(state, batch, jax.random.PRNGKey(3)))
+              if with_eval else None)
     finally:
         mp.undo()
     return dict(cfg=cfg, table=table, batch=batch_np, init=init,
-                steps=steps, eval=(ev_metrics, ev_fake))
+                steps=steps, eval=ev)
+
+
+@pytest.fixture(scope="module")
+def jax_run():
+    """The JAX side of the tiny BLDG config, run once."""
+    jcfg, cfg = bldg_configs()
+    return run_jax(jcfg, cfg, tiny_bldg_batch(cfg))
 
 
 def _port_trainer(run, monkeypatch):
@@ -160,6 +166,60 @@ def _g_grads_checked(t, want, what) -> dict:
             for n, w in want.items()}
 
 
+def check_steps_match_jax(t, batch, steps) -> None:
+    """Run ``t.train_step(batch)`` once per JAX step of ``steps`` (each
+    (state, metrics, G gradients, D gradients) after that step) and hold
+    the port to it, as ``TestBldgTrainStep`` sets out."""
+    net = t.cfg.network
+    lr, mom = t.cfg.train.generator.lr, ptv3.MaskedBatchNorm.MOMENTUM
+    stats0 = _ptv3_stats(t.generator.state_dict())
+    assert len(stats0) > 10
+    held = None
+    for i, (state, jm, jg, jd) in enumerate(steps):
+        m = t.train_step(batch)
+        assert t.step == i + 1 and t.generator.training
+        for k, v in jm.items():
+            np.testing.assert_allclose(float(m[k]), float(v),
+                                       rtol=LOSS_RTOL, atol=LOSS_ATOL,
+                                       err_msg=f"step {i} {k}")
+        assert float(m["GenLoss"]) > 0 and float(m["DisLoss"]) > 0
+        assert int(m["PTv3PoolOverflow"]) == 0
+        want_grad = _g_grads_checked(
+            t, interop.generator_state_from_flax(jg, net),
+            f"step {i} G grad")
+        _close_rel(
+            {n: p.grad for n, p in t.discriminator.named_parameters()},
+            {k: v for k, v in interop.discriminator_state_from_flax(
+                jd, state.d_stats).items()
+             if not k.endswith((".u", ".sigma"))}, f"step {i} D grad")
+        signal = {n: (g.abs() >= ZERO_GRAD * g.abs().max()) & (g != 0)
+                  for n, g in want_grad.items()}
+        held = signal if held is None else {
+            n: held[n] & signal[n] for n in signal}
+        want = interop.generator_state_from_flax(
+            {"params": state.g_params, "batch_stats": state.g_stats},
+            net)
+        for n, v in t.generator.state_dict().items():
+            w = want[n]
+            err = (v - w).abs()
+            tol = REL * float(w.abs().max())
+            if n in held:
+                assert bool((err[held[n]] <= tol).all()), \
+                    f"step {i} G weight {n}"
+                assert float(err.max()) <= 2 * lr * (i + 1) + tol, \
+                    f"step {i} G weight {n}"
+            else:  # a running statistic
+                slack = mom * 2 * lr * i if n.endswith(".mean") else 0
+                assert float(err.max()) <= tol + slack, \
+                    f"step {i} batch_stats {n}"
+        _close_rel(t.discriminator.state_dict(),
+                   interop.discriminator_state_from_flax(
+                       state.d_params, state.d_stats), f"step {i} D")
+    # the running statistics moved, once per step
+    stats = _ptv3_stats(t.generator.state_dict())
+    assert any(not torch.equal(stats[k], stats0[k]) for k in stats)
+
+
 class TestBldgTrainStep:
     def test_two_steps_match_jax_trainer(self, jax_run, monkeypatch):
         """Losses, counters, G and D gradients, the weights after Adam,
@@ -175,54 +235,7 @@ class TestBldgTrainStep:
         within 2 lr a step.  A running mean follows its input's bias, so it
         is held within REL plus momentum times that."""
         t, batch = _port_trainer(jax_run, monkeypatch)
-        net = t.cfg.network
-        lr, mom = t.cfg.train.generator.lr, ptv3.MaskedBatchNorm.MOMENTUM
-        stats0 = _ptv3_stats(t.generator.state_dict())
-        assert len(stats0) > 10
-        held = None
-        for i, (state, jm, jg, jd) in enumerate(jax_run["steps"]):
-            m = t.train_step(batch)
-            assert t.step == i + 1 and t.generator.training
-            for k, v in jm.items():
-                np.testing.assert_allclose(float(m[k]), float(v),
-                                           rtol=LOSS_RTOL, atol=LOSS_ATOL,
-                                           err_msg=f"step {i} {k}")
-            assert float(m["GenLoss"]) > 0 and float(m["DisLoss"]) > 0
-            assert int(m["PTv3PoolOverflow"]) == 0
-            want_grad = _g_grads_checked(
-                t, interop.generator_state_from_flax(jg, net),
-                f"step {i} G grad")
-            _close_rel(
-                {n: p.grad for n, p in t.discriminator.named_parameters()},
-                {k: v for k, v in interop.discriminator_state_from_flax(
-                    jd, state.d_stats).items()
-                 if not k.endswith((".u", ".sigma"))}, f"step {i} D grad")
-            signal = {n: (g.abs() >= ZERO_GRAD * g.abs().max()) & (g != 0)
-                      for n, g in want_grad.items()}
-            held = signal if held is None else {
-                n: held[n] & signal[n] for n in signal}
-            want = interop.generator_state_from_flax(
-                {"params": state.g_params, "batch_stats": state.g_stats},
-                net)
-            for n, v in t.generator.state_dict().items():
-                w = want[n]
-                err = (v - w).abs()
-                tol = REL * float(w.abs().max())
-                if n in held:
-                    assert bool((err[held[n]] <= tol).all()), \
-                        f"step {i} G weight {n}"
-                    assert float(err.max()) <= 2 * lr * (i + 1) + tol, \
-                        f"step {i} G weight {n}"
-                else:  # a running statistic
-                    slack = mom * 2 * lr * i if n.endswith(".mean") else 0
-                    assert float(err.max()) <= tol + slack, \
-                        f"step {i} batch_stats {n}"
-            _close_rel(t.discriminator.state_dict(),
-                       interop.discriminator_state_from_flax(
-                           state.d_params, state.d_stats), f"step {i} D")
-        # the running statistics moved, once per step
-        stats = _ptv3_stats(t.generator.state_dict())
-        assert any(not torch.equal(stats[k], stats0[k]) for k in stats)
+        check_steps_match_jax(t, batch, jax_run["steps"])
 
     def test_eval_step_matches_jax_and_keeps_the_statistics(self, jax_run,
                                                            monkeypatch):

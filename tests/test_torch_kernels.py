@@ -122,6 +122,10 @@ BLEND_CASES = {
     "tiles16": (3000, (256, 64), (16, 16), 256, True, None, "uniform"),
     "window_odd8x128": (3000, (256, 64), (8, 128), 256, True,
                         (37, 21, 160, 40), "uniform"),
+    # one sample of the B = 2 BLDG step: its 640x448 crop of the 960x540
+    # sensor at the BLDG recipe's tiles and capacity
+    "bldg_crop640x448": (16384, (960, 540), (32, 32), 1024, True,
+                         (160, 46, 640, 448), "uniform"),
 }
 
 
@@ -193,6 +197,8 @@ K2_CASES = {
                       (92, 12, 128, 32), "uniform"),
     "edge_tiles": (20000, (960, 540), (32, 32), 1024, True, None,
                    "uniform"),
+    "bldg_crop640x448": (16384, (960, 540), (32, 32), 1024, True,
+                         (160, 46, 640, 448), "uniform"),
     "crowded_small32": (30000, (256, 128), (32, 32), 1024, True, None,
                         "small"),
     "one_heavy_tile": (3000, (256, 64), (32, 32), 4096, True, None,
@@ -622,3 +628,132 @@ def test_gather_rowsum_kernel_ragged(dev, case):
     torch.cuda.synchronize()
     assert got.shape == idx.shape
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the LOCAL step's hash-grid inputs and the B = 2 BLDG step
+# ---------------------------------------------------------------------------
+
+
+def _local_points(N, seed):
+    """Hash-grid inputs as the LOCAL REST step makes them: two encoder
+    dimensions that vary from point to point (a tanh feature map sampled
+    at each point's uv) before rel_xyz, where the GLOBAL step's are one
+    constant per scene."""
+    rng = np.random.default_rng(seed)
+    uv = rng.uniform(-1, 1, (N, 2))
+    enc = np.tanh(np.stack([2 * np.sin(3 * uv[:, 0]),
+                            2 * np.cos(5 * uv[:, 1]) * uv[:, 0]], -1))
+    rel = rng.uniform(-1.02, 1.02, (N, 3))
+    return np.concatenate([enc, rel], -1).astype(np.float32)
+
+
+@pytest.mark.parametrize("N", [16384, 3001])
+def test_hash_grid_kernels_on_local_inputs(dev, N):
+    """G1, G1b with the input gradient, and G1b then K3 through autograd,
+    on the LOCAL step's inputs at the REST recipe's grid (16 levels of 8
+    channels up to 2048, 2^19 rows): each against its plain version."""
+    D, L, base, desired, log2, C = 5, 16, 16, 2048, 19, 8
+    shape = hash_grid.table_shape(D, L, base, desired, log2, C)
+    rng = np.random.default_rng(11)
+    emb = torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32))
+    x = torch.from_numpy(_local_points(N, 12))
+    g = torch.from_numpy(rng.normal(size=(N, L * C)).astype(np.float32))
+    args = (x.to(dev), emb.to(dev), L, base, desired, log2)
+    got = hash_grid.hash_encode_fwd(*args)
+    want = hash_grid.hash_encode_fwd_plain(*args)
+    bargs = (x.to(dev), emb.to(dev), g.to(dev), L, base, desired, log2)
+    got_b = hash_grid.hash_encode_bwd(*bargs)
+    want_b = hash_grid.hash_encode_bwd_plain(*bargs)
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    assert scale > 0.1
+    assert float((got - want).abs().max()) <= G1_RTOL * scale
+    for a, b in zip(got_b[:3], want_b[:3]):
+        assert torch.equal(a, b)
+    scale = float(want_b[3].abs().max())
+    assert scale > 0 and float(want_b[3][:, :2].abs().max()) > 0
+    assert float((got_b[3] - want_b[3]).abs().max()) <= G1B_RTOL * scale
+    grads = {}
+    for where in (dev, torch.device("cpu")):
+        tx = x.to(where).requires_grad_(True)
+        te = emb.to(where).requires_grad_(True)
+        (hash_grid.hash_encode(tx, te, D, L, base, desired, log2)
+         * g.to(where)).sum().backward()
+        grads[where.type] = (tx.grad.cpu(), te.grad.cpu())
+    for got_g, want_g, rtol in zip(grads["cuda"], grads["cpu"],
+                                   (G1B_RTOL, K3_RTOL)):
+        scale = float(want_g.abs().max())
+        assert scale > 0
+        assert float((got_g - want_g).abs().max()) <= rtol * scale
+
+
+def test_bldg_batch2_step_card_matches_cpu(dev, monkeypatch):
+    """Two steps of a tiny BLDG config at batch size 2 (two samples, the
+    second with a quarter of its rows masked; drop path off; one z table
+    on both devices, whose generators draw differently): the card
+    (K1, K2 and K3 per Gaussian for each sample) against the CPU (plain
+    versions), losses within 1e-4 relative, gradients within 1e-3 of
+    each tensor's largest or 1e-5 of the model's largest gradient,
+    whichever is more: float32 sums over the points in other orders err
+    by ~eps x the sum of the terms' magnitudes, which for a gradient that
+    nearly cancels (the LayerNorm before the attention, the key bias,
+    whose gradient is 0 in exact arithmetic) exceeds 1e-3 of the
+    tensor's own largest (measured on the card: 7e-7 of the model's
+    largest).  TF32 is off, as ``chip_smoke.py`` sets it: cuDNN's default
+    TF32 convolutions in D and VGG would err by ~1e-3 alone."""
+    from gaussiancity_tpu_torch.config import (
+        Config, DatasetConfig, DiscriminatorOptim, GaussianNetworkConfig,
+        PTv3Config, RasterizerConfig, TrainConfig)
+    from gaussiancity_tpu_torch.models import ptv3
+    from gaussiancity_tpu_torch.testing import TINY_PTV3, tiny_bldg_batch
+    from gaussiancity_tpu_torch.training.step import Trainer
+    from gaussiancity_tpu_torch.utils import helpers
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    table = torch.randn((helpers.MAX_N_INSTANCES, 16),
+                        generator=torch.Generator().manual_seed(7))
+    monkeypatch.setattr(helpers, "get_z", lambda gen, ins, z_dim: table.to(
+        ins.device)[ins.long() % table.shape[0]])
+    cfg = Config(
+        dataset=DatasetConfig(
+            sensor_size=(256, 64), train_crop_size=(128, 32), n_classes=8,
+            proj_size=32, cam_k=(100.0, 0, 128.0, 0, 100.0, 32.0, 0, 0, 1)),
+        network=GaussianNetworkConfig(
+            scale_factor=0.65, encoder=None, encoder_out_dim=3,
+            pos_emd="SIN_COS", sin_cos_freq_bends=4, z_dim=16,
+            mlp_hidden_dim=32, dis_n_channel_base=8,
+            ptv3=PTv3Config(**TINY_PTV3)),
+        rasterizer=RasterizerConfig(tile_h=8, tile_w=128, tile_capacity=128),
+        train=TrainConfig(
+            batch_size=2, allow_random_vgg=True,
+            perceptual_loss_layers=("relu_1_1", "relu_2_1"),
+            perceptual_loss_weights=(0.5, 1.0),
+            discriminator=DiscriminatorOptim(n_warmup_iters=1)))
+    one, two = tiny_bldg_batch(cfg, 256, seed=4), tiny_bldg_batch(
+        cfg, 256, seed=5)
+    batch = {k: np.concatenate([one[k], two[k]]) for k in one}
+    batch["pts_mask"][1, 192:] = False
+    batch["cam_pos"][1] = [0.0, 0.5, 0.0]
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        t = Trainer(cfg, device=where, seed=3)
+        ptv3.no_drop_path(t.generator)
+        tb = {k: torch.as_tensor(v, device=where) for k, v in batch.items()}
+        out = []
+        for _ in range(2):
+            m = {k: float(v) for k, v in t.train_step(tb).items()}
+            out.append((m, {n: p.grad.detach().cpu().clone() for mod in
+                            (t.generator, t.discriminator)
+                            for n, p in mod.named_parameters()}))
+        runs[where.type] = out
+    for (m_card, g_card), (m_cpu, g_cpu) in zip(runs["cuda"], runs["cpu"]):
+        for k, v in m_cpu.items():
+            assert abs(m_card[k] - v) <= 1e-4 * abs(v) + 1e-7, (k, m_card[k],
+                                                                 v)
+        top = max(float(g.abs().max()) for g in g_cpu.values())
+        for name, want in g_cpu.items():
+            tol = max(1e-3 * float(want.abs().max()), 1e-5 * top)
+            err = float((g_card[name] - want).abs().max())
+            assert err <= tol, (name, err, tol, top)

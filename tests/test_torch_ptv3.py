@@ -357,16 +357,21 @@ def test_pooling_tie_gradient_matches_jax_segment_max():
 
 
 def test_ptv3_is_eval_only_and_later_options_raise():
-    """Kept by name: training mode now runs, but takes one sample at a
-    time (B > 1 raises); enable_rpe and the sorted-merge search raise."""
+    """Kept by name: nothing raises any more.  Training mode takes B > 1
+    (the samples run packed; ``test_torch_model_surface.py`` holds it to
+    the JAX vmap), and enable_rpe and the sorted-merge search build and
+    run (``test_torch_model_options.py`` holds them to the JAX package)."""
     cfg = PTv3Config(**TINY)
     model = ptv3.PointTransformerV3(cfg, 12)
     x = torch.zeros((1, 40, 12))
-    with pytest.raises(NotImplementedError, match="one sample"):
-        model(torch.zeros((2, 40, 12)), torch.rand((2, 40, 3)))  # training
+    out = model(torch.rand((2, 40, 12)), torch.rand((2, 40, 3)), None,
+                torch.Generator().manual_seed(0))  # training, drop path on
+    assert out.shape == (2, 40, 8) and torch.isfinite(out).all()
     for change in (dict(enable_rpe=True), dict(dense_nbr_extent=0)):
-        with pytest.raises(NotImplementedError):
-            ptv3.PointTransformerV3(cfg.replace(**change), 12)
+        other = ptv3.PointTransformerV3(cfg.replace(**change), 12).eval()
+        with torch.no_grad():
+            assert torch.isfinite(other(torch.rand((1, 40, 12)),
+                                        torch.rand((1, 40, 3)))).all()
     # masked rows of a batch come back 0; an empty sample gives [0, C]
     model.eval()
     with torch.no_grad():

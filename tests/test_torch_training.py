@@ -230,15 +230,25 @@ class TestTrainStep:
                     assert p.grad.abs().max() > 0, name
 
     def test_bfloat16_compute_raises(self):
-        """The JAX Trainer computes D and the perceptual loss in bf16 for
-        train.compute_dtype "bfloat16"; the port computes in float32 only
-        and must say so instead of running float32 silently."""
+        """Kept by name: train.compute_dtype "bfloat16" now builds D and
+        the perceptual loss in bf16, as the JAX Trainer does
+        (``test_torch_model_surface.py`` holds two bf16 steps to it); the
+        generator stays float32 unless network.compute_dtype says
+        otherwise, parameters stay float32, and an unknown dtype raises."""
         cfg = Config.from_dict(tiny_config().to_dict())
         bf16 = cfg.replace(train=cfg.train.replace(compute_dtype="bfloat16"))
-        with pytest.raises(NotImplementedError, match="compute_dtype"):
-            Trainer(bf16, device="cpu")
-        assert Trainer(cfg, device="cpu").cfg.train.compute_dtype == \
-            "float32"
+        t = Trainer(bf16, device="cpu")
+        assert t.discriminator.enc1.compute_dtype == torch.bfloat16
+        assert t.ploss.model.compute_dtype == torch.bfloat16
+        assert t.generator.ga_mlp.fc_1.compute_dtype is None
+        assert all(p.dtype == torch.float32 for p in
+                   list(t.discriminator.parameters())
+                   + list(t.generator.parameters()))
+        assert Trainer(cfg, device="cpu").discriminator.enc1.compute_dtype \
+            is None
+        with pytest.raises(ValueError, match="compute_dtype"):
+            Trainer(cfg.replace(train=cfg.train.replace(
+                compute_dtype="float16")), device="cpu")
 
     def test_checkpoint_roundtrip(self, tmp_path):
         _, _, _, t, tbatch = _trainer_pair()
