@@ -122,7 +122,42 @@ Phases, each of which fails the run if it fails:
     weights, scene and poses): its median beside phase 11's, the
     per-pixel grey-level difference from phase 11's frames (within 1 at
     >= 99 % of pixels, and unequal at >= 1 %), and K1 held against its
-    plain version on the first frame's inputs.
+    plain version on the first frame's inputs;
+26. NCCL at world size 1 on the card (one spawned rank): a tiny REST and
+    a tiny BLDG data-parallel step (``make_parallel_train_step``) equal
+    ``Trainer.train_step`` of a twin trainer bit for bit over two steps
+    (losses, every gradient, the weights after Adam), PyTorch's
+    deterministic algorithms on;
+27. two ranks sharing the card (gloo) against two ranks on the CPU (gloo,
+    plain versions): two tiny REST and two tiny BLDG steps, a different
+    sample a rank (phases 8 and 13's limits; the replicas bit-equal after
+    every step; the ranks' z tables differ);
+28. the full-width data-parallel REST step (phase 9's batch on rank 0,
+    another draw and crop on rank 1) and BLDG step (buildings 172 and 168,
+    phase 22's samples), two ranks on the card: rank 0's first-step K1,
+    K2 and K3 (and G1, G1b on REST) held against their plain versions,
+    then 2 warm-up and 5 timed steps: median, stage split (the
+    collectives as ``allreduce``) and peak per rank, the replicas
+    bit-equal after every step, finite losses, the exactness counters 0,
+    the kernels on every step of every rank;
+29. band-sharded rendering on two ranks: phase 6's first-pose Gaussians
+    through ``make_sharded_rasterizer`` at 960x540 (two bands of 288
+    rows, 36 cropped) against the single-device ``rasterize`` (image
+    within 1e-5) and its backward (a sum-of-squares loss, within 1e-4 of
+    each column's scale), K1 and K2 on each band and held on band 0's
+    inputs; phase 11's frames through ``make_sharded_frame`` (phase 11's
+    weights, buckets, poses and style table): within 1 grey level of
+    phase 11's frames at >= 99 % of pixels, its median beside phase 11's
+    stages, K1 and G1 held on rank 0's first frame;
+30. the command line on two processes sharing the card (``--coordinator
+    127.0.0.1:<port> --num-processes 2 --process-id {0,1}``), 4 steps of
+    the tiny REST widths on phase 16's city: one checkpoint, by rank 0,
+    both ranks' replica digests equal to it, counters 0, then ``--test``.
+
+Two ranks on one card measure correctness and each rank's path (its
+kernels, its collectives staged through the host by gloo), not NVLink
+scaling.  The ranks are spawned processes (``parallel.launch``) that load
+the kernels phase 1 built; each is joined with a timeout.
 
 The perceptual loss runs on seeded random VGG19 weights (the repository
 holds no converted ImageNet weights) behind the JAX package's opt-in gate,
@@ -139,7 +174,9 @@ frame, under "uses" as "cli_frame"; G1b also the backward's launches
 per step and the A/B of phase 9; the uses of phases 21-23 under
 "rest_step_bf16", "bldg_step_b2_f32", "bldg_step_b2_bf16" and
 "local_step", K3's with its kind appended; K1's on phase 25's frame as
-"bf16_frame"), and as its last line
+"bf16_frame"; the uses of phases 28-29 under "ddp_rest_step",
+"ddp_bldg_step", "sharded_raster" and "sharded_frame"), and as its last
+line
 ``{"ok": true, "device": {...}}``.
 
 Run from the repository root: ``python3 chip_smoke.py``
@@ -818,10 +855,11 @@ def capture_calls(targets, fn) -> dict:
     return captured
 
 
-def capture_step_inputs(trainer, batch):
-    """One REST train step, keeping the arguments of its K1 and K2 calls,
-    of its two K3 calls (the hash-grid and the per-Gaussian use), of its
-    G1 call and of its G1b call."""
+def capture_step_inputs(trainer, batch, step=None):
+    """One REST train step (``trainer.train_step``, or ``step``), keeping
+    the arguments of its K1 and K2 calls, of its two K3 calls (the
+    hash-grid and the per-Gaussian use), of its G1 call and of its G1b
+    call."""
     from gaussiancity_tpu_torch.ops import hash_grid, hash_grid_bwd
     from gaussiancity_tpu_torch.ops.rasterizer import blend
 
@@ -829,7 +867,7 @@ def capture_step_inputs(trainer, batch):
         [(blend, "blend_forward"), (blend, "blend_backward"),
          (hash_grid_bwd, "segment_sum_sorted"),
          (hash_grid, "hash_encode_fwd"), (hash_grid, "hash_encode_bwd")],
-        lambda: trainer.train_step(batch))
+        lambda: (step or trainer.train_step)(batch))
     check(all(len(captured[k]) == 1 for k in (
         "blend_forward", "blend_backward", "hash_encode_fwd",
         "hash_encode_bwd")) and len(captured["segment_sum_sorted"]) == 2,
@@ -885,7 +923,7 @@ def sum_uses(per_use: dict) -> dict:
             "library_ms": tot["library_ms"]}
 
 
-def k2_measure(use: str, args) -> dict:
+def k2_measure(use: str, args, shape=(280, 1024, 448, 640)) -> dict:
     """K2 against its plain version on one train step's captured inputs:
     agreement on the live rows, a repeat, time, plain time and bound."""
     import torch
@@ -898,8 +936,8 @@ def k2_measure(use: str, args) -> dict:
     log(f"K2 {use} inputs: T={T} K={K} N={attrs.shape[0]} image {H}x{W} "
         f"origin {origin} slots to replay {int(k_hi.sum())} max k_hi "
         f"{int(k_hi.max())}")
-    check(T == 280 and K == 1024 and (H, W) == (448, 640),
-          "K2 must run at the train step's shape")
+    check((T, K, H, W) == tuple(shape),
+          f"K2 must run at its use's shape {shape}")
     # the live rows: the first sum(k_hi), compact
     n_rows = int(k_hi.sum())
     got = blend.blend_backward(*args)[:n_rows]
@@ -1816,18 +1854,19 @@ def stack_batches(batches):
     return {k: torch.cat([b[k] for b in batches]) for k in batches[0]}
 
 
-def phase_bldg_kernels(trainer, batch, use: str = "BLDG step") -> dict:
-    """One BLDG step with the arguments of its K1, K2 and K3 calls kept
-    (one each per sample); K1, K2 and K3 (per Gaussian) against their
-    plain versions on the first sample's.  Returns each kernel's use
-    entry."""
+def phase_bldg_kernels(trainer, batch, use: str = "BLDG step",
+                       step=None) -> dict:
+    """One BLDG step (``trainer.train_step``, or ``step``) with the
+    arguments of its K1, K2 and K3 calls kept (one each per sample); K1,
+    K2 and K3 (per Gaussian) against their plain versions on the first
+    sample's.  Returns each kernel's use entry."""
     from gaussiancity_tpu_torch.ops import hash_grid_bwd
     from gaussiancity_tpu_torch.ops.rasterizer import blend
 
     captured = capture_calls(
         [(blend, "blend_forward"), (blend, "blend_backward"),
          (hash_grid_bwd, "segment_sum_sorted")],
-        lambda: trainer.train_step(batch))
+        lambda: (step or trainer.train_step)(batch))
     B = batch["pts"].shape[0]
     check(all(len(v) == B for v in captured.values()),
           f"a BLDG step must call K1, K2 and K3 (per Gaussian) once a "
@@ -2992,6 +3031,673 @@ def phase_bf16_frame(kernels, cfg, projections, centers, poses, lut,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 26-30: several ranks (``parallel``), each a spawned process
+# ---------------------------------------------------------------------------
+
+RANKS = 2
+RANK_TIMEOUT_S = 420  # a rank that hangs fails its phase within this
+
+
+def store_path(what: str) -> str:
+    """A fresh ``FileStore`` path under the run's scratch directory."""
+    path = os.path.join(cli_root(), "stores", what)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if os.path.exists(path):
+        os.unlink(path)
+    return path
+
+
+def ranks_run(fn, what: str, args=(), world: int = RANKS,
+              device: str = "cuda") -> list:
+    """``fn(rank, world, device, *args)`` on ``world`` spawned ranks
+    (``parallel.launch.spawn_ranks``); the parent's cached device memory
+    is freed first.  Fails the run if a rank fails or hangs."""
+    import torch
+
+    from gaussiancity_tpu_torch.parallel.launch import spawn_ranks
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = spawn_ranks(fn, world, store_path(what), args=args, device=device,
+                      timeout_s=RANK_TIMEOUT_S)
+    log(f"{what}: {world} ranks on {device} in "
+        f"{time.perf_counter() - t0:.1f} s (spawn and imports included)")
+    return out
+
+
+def rank_setup(device) -> None:
+    """A rank on the card compares with the CPU and with the parent's
+    phases: TF32 off, as phase 2 sets it."""
+    import torch
+
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+
+def nccl_one_rank(rank, world, device):
+    """Phase 26's rank: on NCCL at world size 1, a tiny REST and a tiny
+    BLDG data-parallel step against ``Trainer.train_step`` of a twin
+    trainer, two steps each, with PyTorch's deterministic algorithms on
+    (the card's atomics would otherwise differ between any two runs).
+    Returns what differs, by kind (empty when bit-equal)."""
+    import torch
+    import torch.distributed as dist
+
+    from gaussiancity_tpu_torch.testing import tiny_bldg_batch
+    from gaussiancity_tpu_torch.training.step import (
+        Trainer, make_parallel_train_step)
+
+    rank_setup(device)
+    # cuBLAS's deterministic workspace, set before its first call
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    out = {"backend": dist.get_backend()}
+    cases = (("REST", tiny_train_config(),
+              lambda cfg: synthetic_rest_batch(cfg, 256, 4, device)),
+             ("BLDG", tiny_bldg_config(),
+              lambda cfg: {k: torch.as_tensor(v, device=device) for k, v in
+                           tiny_bldg_batch(cfg, 256, seed=4).items()}))
+    for kind, cfg, make_batch in cases:
+        batch = make_batch(cfg)
+        a = Trainer(cfg, device=device, seed=3)
+        b = Trainer(cfg, device=device, seed=3)
+        step = make_parallel_train_step(a)
+        diff = []
+        for i in range(2):
+            ma, mb = step(batch), b.train_step(batch)
+            diff += [f"step {i} {k}" for k in mb
+                     if float(ma[k]) != float(mb[k])]
+            for part in ("generator", "discriminator"):
+                ta, tb = getattr(a, part), getattr(b, part)
+                sa = ta.state_dict()
+                diff += [f"step {i} {part} {n}"
+                         for n, v in tb.state_dict().items()
+                         if not torch.equal(sa[n], v)]
+                ga = dict(ta.named_parameters())
+                diff += [f"step {i} {part} grad {n}"
+                         for n, p in tb.named_parameters()
+                         if (p.grad is None) != (ga[n].grad is None)
+                         or (p.grad is not None
+                             and not torch.equal(p.grad, ga[n].grad))]
+        out[kind] = diff
+    return out
+
+
+def phase_nccl_world1() -> None:
+    """Phase 26: NCCL at world size 1 on the card."""
+    (r,) = ranks_run(nccl_one_rank, "NCCL world 1", world=1)
+    check(r["backend"] == "nccl",
+          f"one rank on its own card must take NCCL, took {r['backend']}")
+    for kind in ("REST", "BLDG"):
+        check(not r[kind], f"{kind} data-parallel step at world 1 differs "
+              f"from Trainer.train_step: {r[kind][:8]}")
+        log(f"NCCL world 1: the tiny {kind} data-parallel step equals "
+            "Trainer.train_step bit for bit over 2 steps (losses, every "
+            "gradient, the weights after Adam, the running state)")
+
+
+def phase_small_ddp() -> None:
+    """Phase 27: two ranks on the card (gloo) against two ranks on the
+    CPU (gloo, plain versions): two tiny REST and two tiny BLDG steps, a
+    different sample a rank.  Phase 13's limits: losses within
+    STEP_LOSS_RTOL, each averaged gradient within STEP_GRAD_RTOL of its
+    largest, except a generator tensor below ZERO_GRAD of the generator's
+    largest gradient (rounding noise), which must be as small on the
+    card."""
+    from gaussiancity_tpu_torch import testing
+    from gaussiancity_tpu_torch.testing import tiny_bldg_batch
+    from gaussiancity_tpu_torch.utils import helpers
+
+    rest = tiny_train_config()
+    bldg = tiny_bldg_config()
+    cases = {
+        "REST": (rest, [{k: v.cpu().numpy() for k, v in synthetic_rest_batch(
+            rest, 256, 4 + r, "cpu").items()} for r in range(RANKS)], None),
+        "BLDG": (bldg, [tiny_bldg_batch(bldg, 256, seed=4 + r)
+                        for r in range(RANKS)],
+                 np.stack([np.random.default_rng(7 + r).normal(size=(
+                     helpers.MAX_N_INSTANCES, 16)) for r in range(RANKS)]
+                 ).astype(np.float32))}
+    for kind, (cfg, batches, tables) in cases.items():
+        runs = {dev: ranks_run(testing.ddp_steps, f"tiny {kind} DDP {dev}",
+                               args=(cfg, batches, 2, None, tables),
+                               device=dev) for dev in ("cuda", "cpu")}
+        for dev, ranks in runs.items():
+            for i, recs in enumerate(zip(*ranks)):
+                check(len({r["digest"] for r in recs}) == 1,
+                      f"tiny {kind} DDP on {dev} step {i}: the replicas "
+                      "differ")
+        for i, (card, cpu) in enumerate(zip(runs["cuda"][0],
+                                            runs["cpu"][0])):
+            for k, v in cpu["metrics"].items():
+                got = card["metrics"][k]
+                check(np.isfinite(got) and abs(got - v)
+                      <= STEP_LOSS_RTOL * abs(v) + 1e-7,
+                      f"tiny {kind} DDP step {i} {k}: card {got} vs CPU {v}")
+            grads = {f"G.{n}": g for n, g in cpu["g_grads"].items()}
+            grads.update({f"D.{n}": g for n, g in cpu["d_grads"].items()})
+            got = {f"G.{n}": g for n, g in card["g_grads"].items()}
+            got.update({f"D.{n}": g for n, g in card["d_grads"].items()})
+            gmax = max(float(g.abs().max()) for n, g in grads.items()
+                       if n.startswith("G."))
+            worst, zero = 0.0, 0
+            for name, want in grads.items():
+                scale = float(want.abs().max())
+                err = float((got[name] - want).abs().max())
+                if name.startswith("G.") and scale < ZERO_GRAD * gmax:
+                    zero += 1
+                    check(float(got[name].abs().max()) < ZERO_GRAD * gmax,
+                          f"tiny {kind} DDP step {i} {name} is not ~0 on "
+                          "the card")
+                    continue
+                worst = max(worst, err / scale if scale > 0 else err)
+                check(err <= STEP_GRAD_RTOL * scale,
+                      f"tiny {kind} DDP step {i} gradient {name}: card vs "
+                      f"CPU max|d| {err:.3e}, scale {scale:.3e}")
+            log(f"tiny {kind} DDP step {i}, 2 ranks card vs CPU: GenLoss "
+                f"{card['metrics']['GenLoss']:.6f} / "
+                f"{cpu['metrics']['GenLoss']:.6f}; averaged gradients worst "
+                f"max|d| / scale {worst:.3e} ({zero} tensors 0 in exact "
+                "arithmetic); replicas bit-equal on both devices")
+        if tables is not None:
+            z = [r[0]["z_sums"] for r in runs["cuda"]]
+            check(z[0] != z[1], f"tiny {kind} DDP: the ranks drew the same "
+                  "z table")
+            log(f"tiny {kind} DDP: the ranks' z tables differ (sums "
+                f"{[round(v[0], 3) for v in z]})")
+
+
+def ddp_full_rank(rank, world, device, kind, n_warm, n_timed):
+    """Phase 28's rank: the full-width data-parallel step of ``kind``.
+    REST: phase 9's batch on rank 0, another draw and crop on rank 1;
+    BLDG: the rank-th largest building of the city (172, 168).  Rank 0
+    holds its first step's K1, K2 and K3 (and G1, G1b on REST) against
+    their plain versions; then warm-up and timed steps with the launch
+    counts set to 0 just before them, a replica digest after every
+    step."""
+    import torch
+
+    from gaussiancity_tpu_torch.ops import hash_grid, hash_grid_bwd
+    from gaussiancity_tpu_torch.ops.rasterizer import blend
+    from gaussiancity_tpu_torch.training.checkpoint import state_digest
+    from gaussiancity_tpu_torch.training.step import (
+        Trainer, make_parallel_train_step)
+
+    rank_setup(device)
+    if kind == "REST":
+        trainer = Trainer(rest_train_config(), device=device, seed=0)
+        batch = synthetic_rest_batch(trainer.cfg, TRAIN_POINTS, 1 + rank,
+                                     device)
+        if rank:
+            batch["crp_xy"] = torch.tensor([[300, 64]], dtype=torch.int32,
+                                           device=device)
+    else:
+        trainer = Trainer(bldg_train_config(), device=device, seed=1)
+        projections, centers = synthetic_city(512, 48, seed=0)
+        batch, _ = building_batch(trainer.cfg, projections, centers, device,
+                                  rank=rank)
+    step = make_parallel_train_step(trainer)
+    digests, entries = [], {}
+    if rank == 0 and kind == "REST":
+        captured = capture_step_inputs(trainer, batch, step)
+        entries = {"blend_fwd": k1_measure("DDP REST step",
+                                           captured["blend_fwd"]),
+                   "blend_bwd": k2_measure("DDP REST step",
+                                           captured["blend_bwd"]),
+                   **hash_grid_uses(captured, "DDP REST step")}
+        entries["blend_fwd"].pop("touched_share")
+        del captured
+    elif rank == 0:
+        entries = phase_bldg_kernels(trainer, batch, "DDP BLDG step", step)
+        entries["blend_fwd"].pop("touched_share")
+    else:
+        step(batch)
+    digests.append(state_digest(trainer))
+    for _ in range(n_warm):
+        step(batch)
+        digests.append(state_digest(trainer))
+    counters = {"blend_fwd": blend.blend_forward,
+                "blend_bwd": blend.blend_backward,
+                "segment_sum": hash_grid_bwd.segment_sum_sorted}
+    if kind == "REST":
+        counters.update(hash_encode_fwd=hash_grid.hash_encode_fwd,
+                        hash_encode_bwd=hash_grid.hash_encode_bwd)
+    for fn in counters.values():
+        fn.launches = 0
+    trainer.stage_ms.clear()
+    trainer.time_stages = True
+    torch.cuda.reset_peak_memory_stats(device)
+    step_ms, per_step, metrics = [], [], []
+    for _ in range(n_timed):
+        counts = {n: fn.launches for n, fn in counters.items()}
+        t0 = time.perf_counter()
+        m = step(batch)
+        torch.cuda.synchronize(device)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append({n: fn.launches - counts[n]
+                         for n, fn in counters.items()})
+        metrics.append({k: float(v) for k, v in m.items()})
+        digests.append(state_digest(trainer))
+    trainer.time_stages = False
+    return {"step_ms": step_ms, "stage_ms": dict(trainer.stage_ms),
+            "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30,
+            "per_step": per_step, "metrics": metrics, "digests": digests,
+            "entries": entries}
+
+
+def phase_ddp_full(kernels, kind: str, n_warm: int = 2,
+                   n_timed: int = 5) -> dict:
+    """Phase 28: the full-width data-parallel step of ``kind`` on two
+    ranks sharing the card over gloo: medians, stage split with the
+    collectives as ``allreduce``, peaks; replicas bit-equal after every
+    step, finite losses, counters 0, the kernels on every step of every
+    rank; rank 0's first-step kernels held against their plain
+    versions."""
+    ranks = ranks_run(ddp_full_rank, f"full-width DDP {kind}",
+                      args=(kind, n_warm, n_timed))
+    for i, ds in enumerate(zip(*[r["digests"] for r in ranks])):
+        check(len(set(ds)) == 1, f"DDP {kind} step {i}: the replicas differ")
+    need = 2 if kind == "REST" else 1  # K3: both uses on REST
+    for r, res in enumerate(ranks):
+        for i, (m, launched) in enumerate(zip(res["metrics"],
+                                              res["per_step"])):
+            for k, v in m.items():
+                check(np.isfinite(v), f"DDP {kind} rank {r} step {i}: {k}")
+            check(m["RasterGradTruncated"] == 0
+                  and m["PTv3PoolOverflow"] == 0,
+                  f"DDP {kind} rank {r} step {i}: exactness counters {m}")
+            check(min(launched.values()) >= 1
+                  and launched["segment_sum"] >= need,
+                  f"DDP {kind} rank {r} step {i}: a kernel was not "
+                  f"launched ({launched})")
+        med = float(np.median(res["step_ms"]))
+        log(f"DDP {kind} rank {r}: median step {med:.2f} ms of "
+            f"{len(res['step_ms'])} (stage timers synchronise the card), "
+            f"peak {res['peak_gib']:.2f} GiB; GenLoss "
+            f"{res['metrics'][-1]['GenLoss']:.5f} (averaged)")
+        for stage, ms in res["stage_ms"].items():
+            log(f"  rank {r} stage {stage:10s} " + " ".join(
+                f"{v:9.2f}" for v in ms)
+                + f"   median {float(np.median(ms)):9.2f} ms")
+    log(f"DDP {kind}: replicas bit-equal after all "
+        f"{len(ranks[0]['digests'])} steps; K1, K2, K3"
+        + (", G1 and G1b" if kind == "REST" else "")
+        + " on every timed step of both ranks")
+    use = f"ddp_{kind.lower()}_step"
+    totals = {n: sum(s[n] for r in ranks for s in r["per_step"])
+              for n in ranks[0]["per_step"][0]}
+    for name, e in ranks[0]["entries"].items():
+        if name == "segment_sum" and kind == "REST":
+            for kind_k3, u in e.items():
+                add_use(kernels, name, f"{use}_{kind_k3}", u,
+                        totals[name] // 2)
+        else:
+            add_use(kernels, name, use, e, totals[name])
+    return {"median_ms": [float(np.median(r["step_ms"])) for r in ranks],
+            "peak_gib": [r["peak_gib"] for r in ranks],
+            "allreduce_ms": [float(np.median(r["stage_ms"]["allreduce"]))
+                             for r in ranks]}
+
+
+def first_pose_gaussians(pipe, projections, centers, poses):
+    """The Gaussians, camera and config of the first pose's rasterize
+    call of ``pipe`` (phase 6's REST frame)."""
+    from gaussiancity_tpu_torch.inference import pipeline as pl
+
+    calls = capture_calls([(pl, "rasterize_points14")],
+                          lambda: pipe.render_trajectory(
+                              projections, centers, poses[:1]))
+    gs, cam, cfg = calls["rasterize_points14"][0]
+    # copies outside inference mode, so that autograd may record them
+    return gs.cpu().numpy(), cam._replace(
+        view_matrix=cam.view_matrix.cpu().clone(),
+        full_proj=cam.full_proj.cpu().clone(),
+        cam_pos=cam.cam_pos.cpu().clone()), cfg
+
+
+def sharded_raster_probe(rank, run, shape):
+    """Phase 29's rasterizer probe around ``testing.sharded_raster_rank``:
+    the band's K1 and K2 launches of one render and backward (captured);
+    rank 0 holds them against their plain versions (K2 at ``shape``:
+    tiles, capacity, band rows, width); then 4 timed runs.  Returns (the
+    last run's output, the launches, entries and median ms)."""
+    import torch
+
+    from gaussiancity_tpu_torch.ops.rasterizer import blend
+
+    blend.blend_forward.launches = blend.blend_backward.launches = 0
+    captured = capture_calls([(blend, "blend_forward"),
+                              (blend, "blend_backward")], run)
+    entries = {}
+    if rank == 0:
+        entries = {"blend_fwd": k1_measure("sharded rasterizer band 0",
+                                           captured["blend_forward"][0]),
+                   "blend_bwd": k2_measure("sharded rasterizer band 0",
+                                           captured["blend_backward"][0],
+                                           shape)}
+        entries["blend_fwd"].pop("touched_share")
+    launches = {"blend_fwd": len(captured["blend_forward"]),
+                "blend_bwd": len(captured["blend_backward"])}
+    del captured
+    ms = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return out, {"launches": launches, "entries": entries,
+                 "ms": float(np.median(ms[1:]))}
+
+
+def phase_sharded_raster(kernels, gs, cam, cfg, device="cuda") -> None:
+    """Phase 29a: phase 6's first-pose Gaussians through the band-sharded
+    rasterizer on two ranks against the single-device ``rasterize`` and
+    its backward."""
+    import functools
+
+    import torch
+
+    from gaussiancity_tpu_torch import testing
+    from gaussiancity_tpu_torch.ops.rasterizer import (rasterize,
+                                                       unpack_points14)
+    from gaussiancity_tpu_torch.parallel.sharded_raster import band_height
+
+    # the reference's backward with no slot budget, as the bands' (the
+    # recipe's 65,536 slots would truncate the whole frame's backward)
+    cfg = cfg.replace(grad_budget=0)
+    n = -(-gs.shape[0] // RANKS) * RANKS
+    valid = np.arange(n) < gs.shape[0]
+    gs = np.concatenate([gs, np.repeat(gs[:1], n - gs.shape[0], 0)])
+    band = band_height(cam.img_h, cfg.tile_h, RANKS)
+    log(f"sharded rasterizer: {gs.shape[0]} Gaussians at {cam.img_w}x"
+        f"{cam.img_h}, {RANKS} bands of {band} rows "
+        f"({band * RANKS - cam.img_h} cropped)")
+    shape = (band // cfg.tile_h * -(-cam.img_w // cfg.tile_w),
+             cfg.tile_capacity, band, cam.img_w)
+    scene = [a.numpy() for a in unpack_points14(torch.from_numpy(gs))]
+    ranks = ranks_run(testing.sharded_raster_rank, "sharded rasterizer",
+                      args=(scene, valid, np.zeros(3, np.float32), cam, cfg,
+                            functools.partial(sharded_raster_probe,
+                                              shape=shape)))
+    dev = torch.device(device)
+    x = torch.as_tensor(gs, device=dev).requires_grad_(True)
+    camd = cam._replace(view_matrix=cam.view_matrix.to(dev),
+                        full_proj=cam.full_proj.to(dev),
+                        cam_pos=cam.cam_pos.to(dev))
+    out = rasterize(*unpack_points14(x), camd, cfg,
+                    valid=torch.as_tensor(valid, device=dev),
+                    bg=torch.zeros(3, device=dev))
+    check(int(out.n_grad_truncated) == 0 and int(out.n_truncated) == 0,
+          "the single-device reference render truncated")
+    counts = [r["counts"] for r in ranks]
+    log(f"sharded rasterizer: the bands' counters (dropped pairs, "
+        f"truncated, gradient-truncated) {counts[0]}")
+    check(counts == [[int(out.n_dropped_pairs), 0, 0]] * RANKS,
+          f"the bands' counters {counts} differ from the reference's")
+    ref = out.image
+    (ref ** 2).sum().backward()
+    ref, gref = ref.detach().cpu(), x.grad.cpu()
+    img = ranks[0]["image"]
+    check(all(torch.equal(img, r["image"]) for r in ranks),
+          "the ranks' sharded images differ")
+    err = float((img - ref).abs().max())
+    log(f"sharded rasterizer vs single-device rasterize: image max|d| "
+        f"{err:.3e}, bit-equal {torch.equal(img, ref)}")
+    check(tuple(img.shape) == tuple(ref.shape) and err <= 1e-5,
+          f"sharded image differs from rasterize by {err:.3e}")
+    grad = torch.cat([torch.cat([g.reshape(len(g), -1) for g in r["grads"]],
+                                1) for r in ranks])
+    scale = gref.abs().amax(dim=0).clamp(min=1e-30)
+    rel = float(((grad - gref).abs() / scale).max())
+    log(f"sharded rasterizer gradients (sum of squares): worst max|d| / "
+        f"column scale {rel:.3e} over 14 columns")
+    check(rel <= 1e-4, "sharded rasterizer gradients differ from the "
+          f"single-device backward by {rel:.3e} of a column's scale")
+    for r, res in enumerate(ranks):
+        check(min(res["launches"].values()) >= 1,
+              f"rank {r}'s band did not launch K1 and K2: {res['launches']}")
+    log(f"sharded rasterizer: render + backward median "
+        f"{[round(r['ms'], 2) for r in ranks]} ms per rank; K1 / K2 "
+        f"launches per band {[r['launches'] for r in ranks]}")
+    for name, e in ranks[0]["entries"].items():
+        add_use(kernels, name, "sharded_raster", e,
+                sum(r["launches"][name] for r in ranks))
+
+
+def frame_inputs(pipe, projections, centers, poses, lut) -> dict:
+    """Per pose of ``pipe``'s trajectory: the buckets its generators take
+    (each with its count of real rows), its camera (on the host: the one
+    ``raster_view`` builds on the card) and the road mask (an untimed pass
+    of phase 11's trajectory), with the projection maps and the style
+    table."""
+    got, pending = {"frames": []}, {}
+    pred, view, blur, prep = (pipe.predict_attrs_single, pipe.raster_view,
+                              pipe.road_blur, pipe.prepare)
+
+    def predict(name, pts9, *args, **kwargs):
+        pending[name] = (pts9.cpu().numpy(), len(pts9))
+        return pred(name, pts9, *args, **kwargs)
+
+    def raster_view(gs, pos, quat):
+        cam = pipe.camera.params_f32(pos, quat)
+        got["frames"].append({"buckets": dict(pending), "cam": cam._replace(
+            view_matrix=cam.view_matrix.cpu(), full_proj=cam.full_proj.cpu(),
+            cam_pos=cam.cam_pos.cpu())})
+        pending.clear()
+        return view(gs, pos, quat)
+
+    def road_blur(img, road):
+        got["frames"][-1]["road"] = road.cpu()
+        return blur(img, road)
+
+    def prepare(*args, **kwargs):
+        out = prep(*args, **kwargs)
+        got["maps"] = tuple(t.cpu() for t in out[1:])
+        return out
+
+    pipe.predict_attrs_single, pipe.raster_view = predict, raster_view
+    pipe.road_blur, pipe.prepare = road_blur, prepare
+    try:
+        pipe.render_trajectory(projections, centers, poses, style_lut=lut)
+    finally:
+        for name in ("predict_attrs_single", "raster_view", "road_blur",
+                     "prepare"):
+            delattr(pipe, name)
+    return got
+
+
+def sharded_frame_probe(rank, i, run, fr, pipe, n):
+    """Phase 29's frame probe around ``testing.sharded_frame_rank``, whose
+    frames are phase 11's ``n`` poses twice: frame i's image through the
+    frame's flips, road blur and uint8 cast.  The first pass warms up; the
+    second is timed, with the launch counts set to 0 just before it.  On
+    the first frame, rank 0 holds its K1 and G1 against their plain
+    versions (every rank captures: the frame's collectives are shared)."""
+    import torch
+
+    from gaussiancity_tpu_torch.inference.pipeline import frame_to_uint8
+    from gaussiancity_tpu_torch.ops import hash_grid
+    from gaussiancity_tpu_torch.ops.rasterizer import blend
+
+    def finished():
+        out = run()
+        img = out.image.flip(-1)
+        if pipe.ds.flip_ud:
+            img = img.flip(-2)
+        return out, pipe.road_blur(img.permute(1, 2, 0),
+                                   fr["road"].to(img.device))
+
+    rec = {}
+    if i == n:  # the timed pass starts
+        blend.blend_forward.launches = 0
+        hash_grid.hash_encode_fwd.launches = 0
+    if i == 0:
+        captured = capture_calls(
+            [(blend, "blend_forward"), (hash_grid, "hash_encode_fwd")],
+            finished)
+        if rank == 0:
+            rec["entries"] = {"blend_fwd": k1_measure(
+                "sharded frame band 0", captured["blend_forward"][0]),
+                "hash_encode_fwd": g1_use(phase_g1(
+                    "sharded frame, rank 0's REST rows",
+                    captured["hash_encode_fwd"][0]))}
+            rec["entries"]["blend_fwd"].pop("touched_share")
+        del captured
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, img = finished()
+    torch.cuda.synchronize()
+    if i >= n:
+        rec.update(ms=(time.perf_counter() - t0) * 1e3,
+                   frame=frame_to_uint8(img),
+                   counts=[int(c) for c in out[1:]])
+    if i == 2 * n - 1:
+        rec["launches"] = {"blend_fwd": blend.blend_forward.launches,
+                           "hash_encode_fwd":
+                               hash_grid.hash_encode_fwd.launches}
+    return rec
+
+
+def phase_sharded_frame(kernels, cfg, inputs, frames_f32,
+                        stage_medians: dict) -> None:
+    """Phase 29b: phase 11's two-model frames through
+    ``make_sharded_frame`` on two ranks: within 1 grey level of phase
+    11's frames at >= 99 % of pixels; its median beside phase 11's
+    generator + rasterize + blur stages."""
+    import functools
+
+    from gaussiancity_tpu_torch import testing
+
+    n = len(inputs["frames"])
+    log("sharded frame buckets (REST, BLDG) per pose: "
+        + str([tuple(c for _, c in f["buckets"].values())
+               for f in inputs["frames"]]))
+    runs = ranks_run(testing.sharded_frame_rank, "sharded two-model frame",
+                     args=(cfg, two_model_pipeline, inputs["frames"] * 2,
+                           inputs["maps"], functools.partial(
+                               sharded_frame_probe, n=n)))
+    ranks = [{"frames": [f["frame"] for f in recs[n:]],
+              "ms": [f["ms"] for f in recs[n:]],
+              "counts": [f["counts"] for f in recs[n:]],
+              "entries": recs[0].get("entries", {}),
+              "launches": recs[-1]["launches"]} for recs in runs]
+    for r, res in enumerate(ranks):
+        check(len(res["frames"]) == n, f"rank {r} rendered "
+              f"{len(res['frames'])} frames")
+        check(res["launches"]["blend_fwd"] >= n
+              and res["launches"]["hash_encode_fwd"] >= n,
+              f"rank {r}: K1 or G1 missing from a frame {res['launches']}")
+        check(res["counts"] == ranks[0]["counts"]
+              and all(c[2] == 0 for c in res["counts"]),
+              f"rank {r}: the bands' counters {res['counts']}")
+    log("sharded frame: the bands' counters (dropped pairs, truncated, "
+        f"gradient-truncated) per frame {ranks[0]['counts']}")
+    for i, (f0, ref) in enumerate(zip(ranks[0]["frames"], frames_f32)):
+        check(all(np.array_equal(f0, r["frames"][i]) for r in ranks),
+              f"sharded frame {i}: ranks differ")
+        d = np.abs(f0.astype(np.int16) - ref.astype(np.int16))
+        share = float((d <= 1).mean())
+        log(f"sharded frame {i}: within 1 grey level of phase 11's at "
+            f"{share:.6f} of pixels (max {int(d.max())}), equal at "
+            f"{float((d == 0).mean()):.6f}")
+        check(share >= 0.99, f"sharded frame {i} differs from phase 11's")
+    ref_ms = sum(stage_medians.get(k, 0.0) for k in
+                 ("generator", "rasterize", "blur"))
+    log(f"sharded frame (generators + rasterizer + flips and blur, buckets "
+        f"given): median per rank "
+        f"{[round(float(np.median(r['ms'])), 2) for r in ranks]} ms; phase "
+        f"11's generator + rasterize + blur stage medians {ref_ms:.2f} ms "
+        "(this call)")
+    for name, e in ranks[0]["entries"].items():
+        add_use(kernels, name, "sharded_frame", e,
+                sum(r["launches"][name] for r in ranks))
+
+
+def phase_cli_ddp(root: str) -> None:
+    """Phase 30: the CLI on two processes on the card (gloo: they share
+    it), 4 steps of the tiny REST widths on phase 16's city: one
+    checkpoint, written by rank 0; both ranks' replica digests equal to
+    the checkpoint's; counters 0; then ``--test`` on it."""
+    import re
+    import socket
+
+    import torch
+
+    from gaussiancity_tpu_torch.training import checkpoint
+    from gaussiancity_tpu_torch.training.step import Trainer
+
+    out_dir = os.path.join(cli_root(), "out_ddp")
+    cfg = cli_config(root, out_dir).replace(exp_name="chip_smoke_ddp")
+    cfg_path = os.path.join(cli_root(), "tiny_rest_ddp.json")
+    with open(cfg_path, "w") as f:
+        f.write(cfg.to_json())
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    common = ["-r", "rest", "-d", "GOOGLE_EARTH", "-c", cfg_path]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "gaussiancity_tpu_torch", *common, "-e",
+         cfg.exp_name, "--max-steps", "4", "--device", "cuda",
+         "--coordinator", f"127.0.0.1:{port}", "--num-processes",
+         str(RANKS), "--process-id", str(r)],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(RANKS)]
+    texts = []
+    try:
+        for p in procs:
+            texts.append(p.communicate(timeout=CLI_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, text) in enumerate(zip(procs, texts)):
+        if p.returncode != 0:
+            log(f"CLI rank {r} failed; the end of its output:\n"
+                f"{text[-4000:]}")
+        check(p.returncode == 0, f"CLI rank {r} exited {p.returncode}")
+        check("backend gloo" in text and "device: cuda:0" in text,
+              f"CLI rank {r} did not run gloo on the card")
+    digests = [re.search(r"replica digest (\w+)", t).group(1) for t in texts]
+    ckpt_dir = os.path.join(out_dir, "ckpt", cfg.exp_name)
+    check(sorted(os.listdir(ckpt_dir)) == ["epoch-00001.pt"],
+          f"the two-process CLI wrote {os.listdir(ckpt_dir)}")
+    trainer = Trainer(cfg, device="cuda", seed=cfg.train.seed)
+    checkpoint.restore_checkpoint(ckpt_dir, trainer)
+    want = checkpoint.state_digest(trainer)
+    check(trainer.step == 4 and digests == [want] * RANKS,
+          "the two-process CLI's ranks do not hold the checkpoint's state")
+    del trainer
+    torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, "logs", cfg.exp_name,
+                           "scalars.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    counters = {k: max(r[k] for r in rows if k in r) for k in (
+        "Raster/Batch/RasterDroppedPairs", "Raster/Batch/RasterTruncated",
+        "Raster/Batch/RasterGradTruncated", "Raster/Batch/PTv3PoolOverflow")}
+    check(not any(counters.values()),
+          f"the two-process CLI overflowed: {counters}")
+    epoch_s = float(re.search(r"\[Epoch 1/1\] done in ([0-9.]+)s",
+                              texts[0]).group(1))
+    text, _ = run_cli(common + ["--test", "-p", ckpt_dir],
+                      "the CLI's --test mode on the two-process checkpoint",
+                      "cuda")
+    val = float(re.search(r"\[Val\]\[Epoch 1\] L1Loss (\S+)", text).group(1))
+    check(np.isfinite(val), "--test on the two-process checkpoint")
+    log(f"CLI on {RANKS} processes (gloo, one card): 4 steps a rank, epoch "
+        f"{epoch_s:.2f} s, processes {wall:.2f} s; one checkpoint by rank "
+        f"0; replicas bit-equal to it (digest {want[:16]}); counters "
+        f"{counters}; --test val L1 {val:.5f}")
+
+
 def main() -> int:
     import torch
 
@@ -3037,6 +3743,7 @@ def run_phases(profiling: bool, t_start: float) -> int:
     if profiling:
         phase_profile(pipe, projections, centers, poses)
     g1 = {"rest_frame": phase_g1("REST frame", g1_args)}
+    first_gs = first_pose_gaussians(pipe, projections, centers, poses)
     del pipe, g1_args
     torch.cuda.empty_cache()
 
@@ -3046,6 +3753,10 @@ def run_phases(profiling: bool, t_start: float) -> int:
     launches, g1_frame_args, frames_f32 = phase_two_model_frame(
         pipe, projections, centers, poses, lut)
     timed.append(launches)
+    frame_medians = {stage: float(np.median(ms))
+                     for stage, ms in pipe.stage_ms.items()
+                     if len(ms) == len(poses)}
+    sharded_in = frame_inputs(pipe, projections, centers, poses, lut)
     if profiling:
         phase_profile(pipe, projections, centers, poses, lut)
     g1["two_model_frame_rest_bucket"] = phase_g1(
@@ -3163,6 +3874,34 @@ def run_phases(profiling: bool, t_start: float) -> int:
                                   timed[1]["median_ms"]))
     log(f"phase time: bf16 two-model frame "
         f"{time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    phase_nccl_world1()
+    log(f"phase time: NCCL world 1 {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    phase_small_ddp()
+    log(f"phase time: tiny DDP steps, 2 ranks card vs CPU "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    for kind in ("REST", "BLDG"):
+        t_phase = time.perf_counter()
+        ddp = phase_ddp_full(kernels, kind)
+        single = rest_step if kind == "REST" else bldg_step
+        log(f"DDP {kind} step medians per rank {ddp['median_ms']} ms "
+            f"(allreduce stage {ddp['allreduce_ms']} ms), peaks "
+            f"{ddp['peak_gib']} GiB; one device (phase "
+            f"{9 if kind == 'REST' else 14}, this call) "
+            f"{single['median_ms']:.2f} ms, {single['peak_gib']:.2f} GiB")
+        log(f"phase time: full-width DDP {kind} "
+            f"{time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    phase_sharded_raster(kernels, *first_gs)
+    phase_sharded_frame(kernels, cfg, sharded_in, frames_f32, frame_medians)
+    del first_gs, sharded_in
+    log(f"phase time: sharded rasterizer and frame "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    phase_cli_ddp(os.path.dirname(city))
+    log(f"phase time: CLI on 2 processes {time.perf_counter() - t_phase:.1f}"
+        " s")
     # launches on the timed passes: REST frame, two-model frame, REST
     # train steps, BLDG train steps; K4's are those of its probe's timed
     # drive; per use, K3's from the REST train steps, G1's from the pass

@@ -321,10 +321,11 @@ class InferencePipeline:
         return abs_xyz, rel_xyz, classes, scales3, onehots, proj_uv, z_pts
 
     def _apply_model(self, module, proj_uv, rel_xyz, onehots, z_pts,
-                     proj_hf, proj_seg):
+                     proj_hf, proj_seg, pts_mask=None):
         z_in = z_pts if module.cfg.z_dim is not None else None
-        mask = torch.ones(rel_xyz.shape[:2], dtype=torch.bool,
-                          device=rel_xyz.device)
+        mask = (pts_mask[None] if pts_mask is not None else
+                torch.ones(rel_xyz.shape[:2], dtype=torch.bool,
+                           device=rel_xyz.device))
         return module(proj_uv, rel_xyz, None, onehots, z_in, proj_hf[None],
                       proj_seg[None], mask)
 
@@ -349,12 +350,17 @@ class InferencePipeline:
 
     def predict_attrs_single(self, name: str, pts9: torch.Tensor,
                              proj_hf: torch.Tensor, proj_seg: torch.Tensor,
-                             proj_tlp, style_lut) -> torch.Tensor:
-        """Compact path: one model over its own class's points."""
+                             proj_tlp, style_lut,
+                             pts_mask: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+        """Compact path: one model over its own class's points.
+        ``pts_mask`` [n] marks the real rows of a padded slab (PTv3 leaves
+        the others out of its serialisation, pooling, attention and
+        BatchNorm statistics); None means every row is real."""
         (abs_xyz, rel_xyz, _, scales3, onehots, proj_uv,
          z_pts) = self._point_features(pts9, proj_tlp, style_lut)
         out = self._apply_model(self.models[name], proj_uv, rel_xyz,
-                                onehots, z_pts, proj_hf, proj_seg)
+                                onehots, z_pts, proj_hf, proj_seg, pts_mask)
         return helpers.get_gaussian_points(abs_xyz, scales3, out)[0]
 
     def raster_view(self, gs_pts: torch.Tensor, cam_pos: torch.Tensor,

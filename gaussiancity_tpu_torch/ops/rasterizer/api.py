@@ -111,7 +111,19 @@ def rasterize(means3d: torch.Tensor, opacities: torch.Tensor,
     prep = preprocess.preprocess(
         means3d, opacities, scales, quats, colors, valid, cam,
         scale_modifier=scale_modifier, near_z=cfg.near_z)
-    img_h, img_w = cam.img_h, cam.img_w
+    return rasterize_preprocessed(prep, bg, cam.img_h, cam.img_w, cfg,
+                                  window)
+
+
+def rasterize_preprocessed(prep: preprocess.Preprocessed, bg: torch.Tensor,
+                           img_h: int, img_w: int,
+                           cfg: RasterizerConfig = RasterizerConfig(),
+                           window: Optional[Tuple] = None) -> RenderOutput:
+    """Binning and blend of Gaussians already in screen space (``rasterize``
+    after ``preprocess``) on an ``img_h`` x ``img_w`` sensor, or on its
+    ``window``.  A window may reach past the sensor's last row: those
+    pixels are rendered like any other and are the caller's to crop (the
+    band-sharded rasterizer's padded last band)."""
     origin = (0.0, 0.0)
     bin_prep = prep
     if window is not None:

@@ -12,8 +12,16 @@ It takes the flags of the JAX ``run.py`` and ``--device`` (default
 ``cuda``; without a card it raises unless given ``--device cpu``).
 Recipes are the constructors of ``config``; ``-c`` replaces the recipe
 with a JSON config.  Checkpoints are the port's own (``training/
-checkpoint.py``).  One process drives one device: ``--num-processes``
-above 1 raises."""
+checkpoint.py``).
+
+Data-parallel training runs one process a rank, each started with the
+same flags and its own ``--process-id``:
+
+    python3 -m gaussiancity_tpu_torch -r rest --coordinator HOST:PORT \
+        --num-processes 2 --process-id 0     # and --process-id 1
+
+Rank r runs on ``cuda:(r % cards)``, or on the CPU with ``--device cpu``
+(gloo); the backend is chosen as ``parallel.mesh`` says."""
 
 from __future__ import annotations
 
@@ -68,11 +76,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "the JAX package")
     p.add_argument("--max-steps", type=int, default=None)
     p.add_argument("--coordinator", default=None,
-                   help="multi-process coordinator address")
-    p.add_argument("--num-processes", type=int, default=None)
-    p.add_argument("--process-id", type=int, default=None)
+                   help="HOST:PORT of the rendezvous of a data-parallel "
+                        "run; rank 0 serves it (e.g. 127.0.0.1:29500)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="ranks of a data-parallel run, one process each")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this process's rank, 0 .. --num-processes - 1")
     p.add_argument("--device", default="cuda",
-                   help="torch device: cuda (default) or cpu")
+                   help="torch device: cuda (default; rank r takes card "
+                        "r %% cards) or cpu")
     return p
 
 
@@ -106,15 +118,23 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     args = get_args(argv)
     logging.basicConfig(
         format="[%(levelname)s] %(asctime)s %(message)s", level=logging.INFO)
-    if args.num_processes is not None and args.num_processes > 1:
-        raise NotImplementedError(
-            "the PyTorch port trains on one device per run: data-parallel "
-            "training over several processes is ROADMAP slice 7")
+    if args.inference and (args.num_processes or 1) > 1:
+        raise ValueError("--inference renders on one process: the frame "
+                         "sharded over ranks is parallel.sharded_infer")
+    from gaussiancity_tpu_torch.parallel import mesh
 
-    from gaussiancity_tpu_torch.device import resolve_device
-
-    device = resolve_device(args.device)
+    device = mesh.init_dist(args.coordinator, args.num_processes,
+                            args.process_id, args.device)
     logging.info("device: %s", device)
+    try:
+        return run_mode(args, device, t_main)
+    finally:
+        if mesh.dist.is_initialized():
+            mesh.dist.destroy_process_group()
+
+
+def run_mode(args: argparse.Namespace, device, t_main: float) -> int:
+    """Inference, ``--test`` or training, on ``device``."""
     if args.run_id:
         logging.info("--run-id %s has no effect: W&B logging is off, as in "
                      "the JAX package", args.run_id)
@@ -138,10 +158,16 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         _, epoch = ckpt.restore_checkpoint(args.ckpt, trainer)
         run_test(cfg, trainer, loader, epoch=epoch)
     else:
+        from gaussiancity_tpu_torch.parallel import mesh
+        from gaussiancity_tpu_torch.training.checkpoint import state_digest
         from gaussiancity_tpu_torch.training.train import train
 
-        train(cfg, dataset_name=cfg.dataset.name, resume_from=args.ckpt,
-              max_steps=args.max_steps, device=device)
+        trainer = train(cfg, dataset_name=cfg.dataset.name,
+                        resume_from=args.ckpt, max_steps=args.max_steps,
+                        device=device)
+        if mesh.get_world_size() > 1:
+            logging.info("rank %d of %d: replica digest %s", mesh.get_rank(),
+                         mesh.get_world_size(), state_digest(trainer))
     return 0
 
 

@@ -13,6 +13,7 @@ Reading the JAX package's Orbax checkpoints is a later slice's work."""
 
 from __future__ import annotations
 
+import hashlib
 import os
 import re
 from typing import Optional, Tuple
@@ -69,3 +70,30 @@ def restore_checkpoint(ckpt_dir: str, trainer,
     if epoch is None:
         raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
     return load_checkpoint(epoch_path(ckpt_dir, epoch), trainer), epoch
+
+
+def state_digest(trainer) -> str:
+    """SHA-256 of every parameter and buffer of the trainer's generator and
+    discriminator and of both Adam states, in a fixed order: ranks of a
+    data-parallel run whose digests are equal hold bit-equal replicas."""
+    h = hashlib.sha256()
+    for m in (trainer.generator, trainer.discriminator):
+        if m is None:
+            continue
+        for name, t in list(m.named_parameters()) + list(m.named_buffers()):
+            h.update(name.encode())
+            h.update(_bytes(t))
+    for opt in (trainer.g_opt, trainer.d_opt):
+        if opt is None:
+            continue
+        for group in opt.param_groups:
+            for p in group["params"]:
+                st = opt.state.get(p, {})
+                for k in sorted(st):
+                    if torch.is_tensor(st[k]):
+                        h.update(_bytes(st[k]))
+    return h.hexdigest()
+
+
+def _bytes(t: torch.Tensor) -> bytes:
+    return t.detach().cpu().reshape(-1).view(torch.uint8).numpy().tobytes()

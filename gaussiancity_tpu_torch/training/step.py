@@ -45,7 +45,9 @@ samples together (PTv3's BatchNorm statistics span them), each sample is
 rendered with its own camera and crop, and the losses average over the
 batch.  At B = 1 this is the JAX step.  At B > 1 it is not the JAX
 package's batch over B devices, whose BatchNorm sees one sample a
-device: it is the JAX package's pieces run at B on one device.
+device: it is the JAX package's pieces run at B on one device.  The JAX
+package's batch over devices is ``make_parallel_train_step``: one process
+a rank, each with B samples of its own.
 """
 
 from __future__ import annotations
@@ -56,6 +58,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gaussiancity_tpu_torch.camera import CameraModel
 from gaussiancity_tpu_torch.config import Config
@@ -349,5 +352,174 @@ def make_train_step(trainer: Trainer):
 
     def step(batch, rng: Optional[torch.Generator] = None):
         return trainer.train_step(batch, rng)
+
+    return step
+
+
+def _flat(tensors: List[torch.Tensor], dtype=torch.float32) -> torch.Tensor:
+    return torch.cat([t.reshape(-1).to(dtype) for t in tensors])
+
+
+class DataParallelSync:
+    """The collectives of one rank's share of a data-parallel step over
+    ``group`` (the default group when None).  Every average is a sum over
+    the ranks divided by the world size, as ``jax.lax.pmean`` takes it,
+    over one flat float32 buffer a call, so that each call is one
+    ``all_reduce``."""
+
+    def __init__(self, group=None):
+        self.group = group
+        self.world = dist.get_world_size(group)
+
+    def _mean_(self, flat: torch.Tensor) -> torch.Tensor:
+        dist.all_reduce(flat, group=self.group)
+        return flat.div_(self.world)
+
+    def gradients(self, module: torch.nn.Module) -> None:
+        """Average ``module``'s gradients over the ranks, in parameter
+        order.  A gradient that is None counts as zeros, as JAX's
+        gradients are, so every rank sends a buffer of the same size; above
+        one rank every parameter then holds the average (a rank whose
+        autograd skipped a parameter takes the others' gradient), and at
+        one rank a None stays None, as ``Trainer.train_step`` leaves it."""
+        params = list(module.parameters())
+        flat = self._mean_(_flat([p.grad if p.grad is not None
+                                  else torch.zeros_like(p) for p in params]))
+        for p, g in zip(params, flat.split([p.numel() for p in params])):
+            if p.grad is not None or self.world > 1:
+                p.grad = g.view_as(p).to(p.dtype)
+
+    def state(self, trainer: Trainer, metrics: Dict[str, torch.Tensor]
+              ) -> Dict[str, torch.Tensor]:
+        """Average the running state (D's spectral-norm ``u`` and
+        ``sigma``, the generator's BatchNorm running statistics) and the
+        metrics, counters included, in one collective.  Returns the
+        averaged metrics as float32 0-dim tensors."""
+        bufs = running_state(trainer)
+        names = list(metrics)
+        vals = torch.stack([metrics[k].detach().float() for k in names])
+        flat = self._mean_(torch.cat([_flat(bufs), vals.to(trainer.device)]))
+        parts = flat.split([b.numel() for b in bufs] + [len(names)])
+        with torch.no_grad():
+            for b, v in zip(bufs, parts):
+                b.copy_(v.view_as(b))
+        return dict(zip(names, parts[-1].unbind()))
+
+
+def running_state(trainer: Trainer) -> List[torch.Tensor]:
+    """The state a step changes besides the weights and Adam's: every
+    floating buffer of the discriminator (its spectral-norm ``u`` and
+    ``sigma``) and of the generator (PTv3's BatchNorm ``mean`` and
+    ``var``), the JAX ``TrainState``'s ``d_stats`` and ``g_stats``."""
+    modules = [trainer.generator] + ([trainer.discriminator]
+                                     if trainer.use_disc else [])
+    return [b for m in modules for b in m.buffers()
+            if b.is_floating_point()]
+
+
+def broadcast_state(trainer: Trainer, group=None, src: int = 0) -> None:
+    """Copy rank ``src``'s parameters, buffers and both Adam states to
+    every rank of ``group``, one broadcast per dtype, as the JAX loop
+    replicates one host state over its devices.  The ranks must hold the
+    same set of tensors (the same config, and the same checkpoint or
+    none); a rank that does not raises before the broadcast."""
+    tensors = []
+    for m in (trainer.generator, trainer.discriminator, trainer.ploss):
+        if m is not None:
+            tensors += list(m.parameters()) + list(m.buffers())
+    for opt in (trainer.g_opt, trainer.d_opt):
+        if opt is None:
+            continue
+        for group_ in opt.param_groups:
+            for p in group_["params"]:
+                st = opt.state.get(p, {})
+                tensors += [st[k] for k in sorted(st)
+                            if torch.is_tensor(st[k])]
+    src_global = (dist.get_global_rank(group, src) if group is not None
+                  else src)
+    sizes = torch.tensor([len(tensors), sum(t.numel() for t in tensors)],
+                         device=trainer.device)
+    want = sizes.clone()
+    dist.broadcast(want, src_global, group=group)
+    if not torch.equal(sizes, want):
+        raise RuntimeError(f"this rank holds {sizes.tolist()} state "
+                           f"tensors / elements, rank {src} "
+                           f"{want.tolist()}: the ranks' states differ")
+    for dtype in sorted({t.dtype for t in tensors}, key=str):
+        part = [t for t in tensors if t.dtype == dtype]
+        flat = _flat(part, dtype).to(trainer.device)
+        dist.broadcast(flat, src_global, group=group)
+        with torch.no_grad():
+            for t, v in zip(part, flat.split([t.numel() for t in part])):
+                t.copy_(v.view_as(t))
+
+
+def rank_generator(trainer: Trainer, step: int, rank: int
+                   ) -> torch.Generator:
+    """Rank ``rank``'s generator of step ``step`` of a data-parallel run,
+    on the trainer's device, seeded from (seed, step, rank).  It serves the
+    rank's z table and then its drop-path masks (``Trainer.train_step``'s
+    ``rng``)."""
+    (seed,) = np.random.SeedSequence([trainer.seed, step, rank]
+                                     ).generate_state(1, dtype=np.uint64)
+    return torch.Generator(device=trainer.device).manual_seed(int(seed))
+
+
+def make_parallel_train_step(trainer: Trainer, group=None):
+    """The data-parallel train step over ``group`` (the default group when
+    None), counterpart of the JAX ``make_parallel_train_step`` and of
+    upstream's DDP step: each process is one rank with its own ``trainer``
+    on its own device, and ``step(batch)`` takes that rank's batch.
+
+    - Each rank runs ``cfg.train.batch_size`` samples of its own exactly
+      as ``Trainer.train_step`` runs them on one device.  PTv3's BatchNorm
+      normalises each rank's samples by their own statistics (no
+      SyncBatchNorm: the JAX package's BatchNorm reduces over its vmap
+      axis, never over devices).
+    - D's and G's gradients are averaged over the ranks right before each
+      Adam update, by step pre-hooks that this installs on the trainer's
+      two optimizers; after the step the spectral-norm state, the
+      BatchNorm running averages and the metrics are averaged, so that
+      the replicas stay bit-equal (``DataParallelSync``).
+    - Rank r draws its z table and drop-path masks from (seed, step, r)
+      (``rank_generator``), as the JAX step folds the device index into
+      its key.  At world size 1 the trainer's own stream serves, and the
+      step equals ``Trainer.train_step`` bit for bit.
+
+    With ``trainer.time_stages`` on, the collectives are a stage of their
+    own, ``allreduce``, taken out of the stages that hold them (``d_step``
+    and ``adam``).  Building the step broadcasts rank 0's state
+    (``broadcast_state``): build it after a resume, once per trainer."""
+    broadcast_state(trainer, group)
+    sync = DataParallelSync(group)
+    rank = dist.get_rank(group) if sync.world > 1 else None
+    held: Dict[str, float] = {}  # ms of collectives inside each stage
+
+    def averaging(module: torch.nn.Module, stage: str):
+        def hook(optimizer, args, kwargs):
+            t0 = trainer._now()
+            sync.gradients(module)
+            held[stage] = (trainer._now() - t0) * 1e3
+        return hook
+
+    trainer.g_opt.register_step_pre_hook(averaging(trainer.generator, "adam"))
+    if trainer.use_disc:
+        trainer.d_opt.register_step_pre_hook(
+            averaging(trainer.discriminator, "d_step"))
+
+    def step(batch, rng=None):
+        if rng is None and rank is not None:
+            rng = rank_generator(trainer, trainer.step, rank)
+        held.clear()
+        metrics = trainer.train_step(batch, rng)
+        t0 = trainer._now()
+        metrics = sync.state(trainer, metrics)
+        if trainer.time_stages:
+            ms = trainer.stage_ms
+            for stage, t in held.items():
+                ms[stage][-1] -= t
+            ms.setdefault("allreduce", []).append(
+                sum(held.values()) + (trainer._now() - t0) * 1e3)
+        return metrics
 
     return step

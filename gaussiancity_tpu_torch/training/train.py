@@ -6,8 +6,14 @@ validation, checkpoints and resume, on one device.
 Metrics stay on the device between logs: each step stacks its metrics
 into one small tensor, and every ``log_freq`` steps one copy brings the
 window to the host, where the loss meters, the writer and the overflow
-warnings read it.  Data-parallel training over several cards is a later
-slice."""
+warnings read it.
+
+Data-parallel: when the default process group holds several ranks
+(``parallel.mesh.init_dist``), ``train`` runs as one process a rank, on
+the rank's device, with ``make_parallel_train_step``.  Each rank loads
+its own share of every epoch, the master alone writes the logs and the
+checkpoints, and the other ranks wait at a barrier before a resume reads
+them."""
 
 from __future__ import annotations
 
@@ -21,7 +27,9 @@ import torch
 from gaussiancity_tpu_torch.config import Config
 from gaussiancity_tpu_torch.data.datasets import DataLoader, get_dataset
 from gaussiancity_tpu_torch.training import checkpoint as ckpt
-from gaussiancity_tpu_torch.training.step import Trainer
+from gaussiancity_tpu_torch.parallel import mesh
+from gaussiancity_tpu_torch.training.step import (Trainer,
+                                                  make_parallel_train_step)
 from gaussiancity_tpu_torch.training.test import test as run_test
 from gaussiancity_tpu_torch.training.test import to_device
 from gaussiancity_tpu_torch.utils.average_meter import AverageMeter
@@ -64,6 +72,10 @@ def train(cfg: Config, dataset_name: Optional[str] = None,
     Returns the trainer."""
     seed = cfg.train.seed
     dataset_name = dataset_name or cfg.dataset.name
+    world = mesh.get_world_size()
+    # the loader shards by rank: rank r's i-th batch (batch size 1) is
+    # item r + i * world of the epoch's order, the sample that the JAX
+    # loop's device r takes at step i from its global batch
     train_loader = DataLoader(
         get_dataset(cfg, dataset_name, "train"),
         batch_size=cfg.train.batch_size, shuffle=True, seed=seed,
@@ -78,10 +90,14 @@ def train(cfg: Config, dataset_name: Optional[str] = None,
 
     init_epoch = 0
     if resume_from:
+        if world > 1:
+            torch.distributed.barrier()
         _, init_epoch = ckpt.restore_checkpoint(resume_from, trainer)
         logging.info("Resumed from %s at epoch %d", resume_from, init_epoch)
+    train_step = (make_parallel_train_step(trainer) if world > 1
+                  else trainer.train_step)
 
-    master = train_loader.rank == 0
+    master = mesh.is_master()
     writer = None
     if master:
         writer = SummaryWriter(cfg.output_dir, cfg.exp_name)
@@ -124,7 +140,7 @@ def train(cfg: Config, dataset_name: Optional[str] = None,
         batch_idx = -1
         for batch_idx, batch in enumerate(train_loader.epoch(epoch_idx)):
             data_time.update(time.time() - t_end)
-            metrics = trainer.train_step(to_device(batch, trainer.device))
+            metrics = train_step(to_device(batch, trainer.device))
             global_step += 1
             pending.append((global_step, torch.stack(
                 [metrics[k].float() for k in metric_keys])))

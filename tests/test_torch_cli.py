@@ -2,8 +2,8 @@
 """The port's command line (``python3 -m gaussiancity_tpu_torch``,
 ``gaussiancity_tpu_torch/run.py``) and its checkpoint loader
 (``inference/loader.py``): the JAX ``run.py``'s flags and defaults, the
-refusals (several processes, no card), train and ``--test`` on a city the
-port generated, and ``--inference`` against the JAX ``run.run_inference``,
+refusals (malformed multi-process flags, no card), data-parallel training
+on two CPU processes, train and ``--test`` on a city the port generated, and ``--inference`` against the JAX ``run.run_inference``,
 each package reading its own checkpoints of the same weights.
 
 The inference reference is the JAX pipeline with its visible points and
@@ -17,6 +17,10 @@ import argparse
 import importlib.util
 import json
 import os
+import re
+import socket
+import subprocess
+import sys
 import types
 from pathlib import Path
 
@@ -101,14 +105,67 @@ def test_config_follows_the_jax_run(tmp_path, monkeypatch):
 
 
 def test_refusals(monkeypatch):
-    with pytest.raises(NotImplementedError, match="several processes"):
-        run.main(["--num-processes", "2", "--device", "cpu"])
+    """Several processes without a rendezvous or with an out-of-range
+    rank, inference on several processes, and no card."""
+    for argv, what in ((["--num-processes", "2"], "--coordinator"),
+                       (["--num-processes", "2", "--coordinator", "h:1",
+                         "--process-id", "2"], "process id"),
+                       (["--inference", "--num-processes", "2"],
+                        "one process")):
+        with pytest.raises(ValueError, match=what):
+            run.main(argv + ["--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for argv in ([], ["--test", "-p", "x"], ["--inference", "-p", "x"]):
         with pytest.raises(RuntimeError, match="CUDA"):
             run.main(argv)
     with pytest.raises(RuntimeError, match="CUDA"):
         loader.load_generator("x")
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_two_processes_train_on_the_cpu(tmp_path):
+    """``--num-processes 2`` with ``--device cpu``: two gloo ranks train
+    the tiny REST widths on the synthetic dataset, rank 0 alone writes the
+    checkpoint, and both ranks log the digest of the checkpoint's state."""
+    from gaussiancity_tpu_torch.training.step import Trainer
+    from test_torch_data import tiny_train_cfg
+
+    cfg = tiny_train_cfg("REST", str(tmp_path / "out")).replace(
+        exp_name="ddp")
+    cfg_path = tmp_path / "tiny.json"
+    cfg_path.write_text(cfg.to_json())
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "gaussiancity_tpu_torch", "-r", "rest",
+         "-c", str(cfg_path), "-d", "SYNTHETIC", "--max-steps", "2",
+         "--device", "cpu", "--coordinator", f"127.0.0.1:{port}",
+         "--num-processes", "2", "--process-id", str(r)],
+        cwd=tmp_path, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in (0, 1)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=240)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, log[-3000:]
+        assert "backend gloo" in log, log[-3000:]
+    digests = [re.search(r"replica digest (\w+)", log).group(1)
+               for log in logs]
+    ckpt_dir = tmp_path / "out" / "ckpt" / "ddp"
+    assert [f.name for f in ckpt_dir.iterdir()] == ["epoch-00001.pt"]
+    t = Trainer(cfg, device="cpu")
+    checkpoint.restore_checkpoint(str(ckpt_dir), t)
+    assert t.step == 2
+    assert digests == [checkpoint.state_digest(t)] * 2
 
 
 def _tiny_ge_cfg(root: str, out_dir: str) -> C.Config:
