@@ -70,10 +70,12 @@ Phases, each of which fails the run if it fails:
     checkpoint, then a resume from it for the second; steps per second;
 16. generate a dataset city on the card: the synthetic city's maps
     written as projection PNGs, 8 orbit poses, ``generate_city`` at the
-    JAX default 640 x 640 x 256 volume (V1 once a view, the split of a
-    view's time), view 0 again on the CPU by the plain path (its maps,
-    points and instance map bit-equal to the card's files), footage JPEGs
-    and one ``GoogleEarthDataset`` item read back; V1 timed on view 0;
+    JAX default 640 x 640 x 256 volume (the footprint extrusion E1 once a
+    category a view, V1 once a view, the split of a view's time), view 0
+    again on the CPU by the plain path (its maps, points and instance map
+    bit-equal to the card's files), footage JPEGs and one
+    ``GoogleEarthDataset`` item read back; E1 held against its plain
+    version and timed on view 0's maps, V1 on its volume;
 17. run the command line (``python3 -m gaussiancity_tpu_torch``) as
     subprocesses on the card: train mode, 4 steps of the tiny REST widths
     on that city (a checkpoint, finite losses, overflow counters 0), then
@@ -152,7 +154,19 @@ Phases, each of which fails the run if it fails:
 30. the command line on two processes sharing the card (``--coordinator
     127.0.0.1:<port> --num-processes 2 --process-id {0,1}``), 4 steps of
     the tiny REST widths on phase 16's city: one checkpoint, by rank 0,
-    both ranks' replica digests equal to it, counters 0, then ``--test``.
+    both ranks' replica digests equal to it, counters 0, then ``--test``;
+31. from raw capture to training city on the card: a synthetic Google
+    Earth capture at the real width (a 2560-pixel OSM render with roads,
+    water and 320 buildings, its metadata, an .esp project, a camera path
+    and the capture's metadata, written here) through the port's
+    ``process_city`` (``google_earth_projections`` at MAP_SIZE 2048, the
+    poses, 4 views at 640 x 640 x 256: E1 once a view, the view's stage
+    split); E1 held against its plain version on the 2048-pixel REST map
+    (bit-equal, and on a repeat) and timed beside the host extruders
+    (NumPy and g++, wall clock, the same rows), one ``GoogleEarthDataset``
+    item read back; then a small KITTI-360 drive (3D-box XML, two
+    categories a view, 256 x 256 x 128) through ``process_city`` on the
+    card and on the CPU: Points pkls and instance images equal.
 
 Two ranks on one card measure correctness and each rank's path (its
 kernels, its collectives staged through the host by gloo), not NVLink
@@ -175,7 +189,9 @@ per step and the A/B of phase 9; the uses of phases 21-23 under
 "rest_step_bf16", "bldg_step_b2_f32", "bldg_step_b2_bf16" and
 "local_step", K3's with its kind appended; K1's on phase 25's frame as
 "bf16_frame"; the uses of phases 28-29 under "ddp_rest_step",
-"ddp_bldg_step", "sharded_raster" and "sharded_frame"), and as its last
+"ddp_bldg_step", "sharded_raster" and "sharded_frame"; E1's on phase
+16's dataset view and phase 31's 2048-pixel map as "dataset_view" and
+"ge_2048", with the rows each emitted), and as its last
 line
 ``{"ok": true, "device": {...}}``.
 
@@ -2162,13 +2178,111 @@ def cli_config(root: str, out_dir: str):
         test=TestConfig(test_freq=1))
 
 
+E1_ROW_BYTES = 20  # a row (x, y, z, scale, instance) of int32
+
+
+def view_targets():
+    """The stages of a generated view, for ``timed_calls``."""
+    from gaussiancity_tpu_torch.data import dataset_generator as dg
+    from gaussiancity_tpu_torch.ops import visibility as vis
+
+    return [(dg, "load_projections"), (dg, "get_centers_from_projections"),
+            (dg, "generate_view"), (dg, "get_local_projections"),
+            (dg, "get_points_from_projections"),
+            (vis, "points_to_volume"), (vis, "visible_from_volume")]
+
+
+def log_view_stages(t: dict, wall: float, n: int, what: str) -> dict:
+    """Log the split of a generated view's time (``timed_calls`` of
+    ``view_targets``) and return each stage's median in ms."""
+    stages = {"extrude (E1, maps uploaded)": t["get_points_from_projections"],
+              "local projections (host)": t["get_local_projections"],
+              "volume": t["points_to_volume"],
+              "raycast (occupancy tables, V1, instance map)":
+                  t["visible_from_volume"]}
+    stages["reindex, masks, copy back"] = [
+        g - sum(col) for g, col in zip(t["generate_view"],
+                                       zip(*stages.values()))]
+    write = (wall - sum(t["generate_view"]) - t["load_projections"][0]
+             - t["get_centers_from_projections"][0]) / n
+    log(f"{what}: {n} views in {wall / 1e3:.2f} s ({wall / n:.1f} ms a "
+        f"view); projections read {t['load_projections'][0]:.1f} ms, "
+        f"centres {t['get_centers_from_projections'][0]:.1f} ms")
+    for name, ms in stages.items():
+        log(f"  stage {name}: " + " ".join(f"{m:.2f}" for m in ms)
+            + f"   median {float(np.median(ms)):.2f} ms")
+    log(f"  stage write (png + pkl, host): {write:.2f} ms a view (mean)")
+    medians = {k: float(np.median(v)) for k, v in stages.items()}
+    medians["write (host)"] = write
+    return medians
+
+
+def device_maps(maps: dict, device) -> tuple:
+    """One category's INS, TD_HF, BU_HF and PTS mask on the card, as
+    ``get_points_from_projections`` uploads them."""
+    import torch
+
+    return tuple(torch.as_tensor(np.ascontiguousarray(m), device=device)
+                 for m in (maps["INS"], maps["TD_HF"], maps["BU_HF"],
+                           maps["PTS"] != 0))
+
+
+def e1_measure(use: str, maps: tuple, include_btm: bool) -> dict:
+    """E1 against its plain version on one category's maps on the card
+    (rows bit-equal, and on a repeat); the time of the whole call (count,
+    scan, the host's read of the row count, emit) and of the padded form
+    that skips the read, the plain version's time, and the bound: the
+    maps read once as the caller passes them (int16 INS, TD_HF and BU_HF
+    and a bool PTS from the PNG maps) and the rows written once over the
+    memory rate."""
+    import torch
+
+    from gaussiancity_tpu_torch.data import dataset_generator as dg
+    from gaussiancity_tpu_torch.ops import extrusion as ext
+
+    args = (*maps, dg.get_seg_ins_relations("GOOGLE_EARTH"),
+            dg.class_scale_table("GOOGLE_EARTH"), include_btm)
+    got = ext.extrude_points_exact(*args)
+    again = ext.extrude_points_exact(*args)
+    want, n = ext.extrude_rows_plain(*args)
+    torch.cuda.synchronize()
+    rows = len(got)
+    check(rows > 0 and int(n) == rows, f"E1 emitted no rows ({use})")
+    err = float((got.long() - want.long()).abs().max()) \
+        if got.shape == want.shape else float("inf")
+    check(torch.equal(got, want),
+          f"E1 is not bit-equal to its plain version ({use})")
+    check(torch.equal(got, again), f"E1 differs between runs ({use})")
+    ms = cuda_time_ms(lambda: ext.extrude_points_exact(*args))
+    padded_ms = cuda_time_ms(lambda: ext.extrude_rows(*args,
+                                                      capacity=rows))
+    plain_ms = cuda_time_ms(lambda: ext.extrude_rows_plain(*args), iters=3,
+                            warmup=1)
+    H, W = maps[0].shape
+    n_bytes = (sum(m.numel() * m.element_size() for m in maps)
+               + rows * E1_ROW_BYTES)
+    bound = n_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"E1 ({use}): maps {H}x{W} ("
+        + ", ".join(str(m.dtype).removeprefix("torch.") for m in maps)
+        + f"), {int(maps[3].sum())} masked pixels, "
+        f"{rows} rows bit-equal to the plain version (and on a repeat); "
+        f"{ms:.4f} ms a call (count, scan, the row count read, emit), "
+        f"{padded_ms:.4f} ms padded (no read), plain {plain_ms:.2f} ms; "
+        f"bound {n_bytes} B -> {bound:.5f} ms")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
+            "padded_ms": padded_ms, "rows": rows, "pixels": H * W}
+
+
 def phase_dataset_generation(projections, device="cuda",
-                             vol_shape=DATASET_VOL) -> Tuple[str, dict]:
+                             vol_shape=DATASET_VOL) -> Tuple[str, dict, dict]:
     """``generate_city`` on the card over the synthetic city's maps (as
-    PNGs) from 8 orbit poses at the JAX default volume: V1 once a view,
-    the split of a view's time, view 0 bit-equal to the CPU's plain path,
-    the files read back by ``GoogleEarthDataset``; V1 timed on view 0.
-    Returns (the city directory, V1's ``dataset_view`` use)."""
+    PNGs) from 8 orbit poses at the JAX default volume: E1 once a category
+    a view and V1 once a view, the split of a view's time, view 0
+    bit-equal to the CPU's plain path, the files read back by
+    ``GoogleEarthDataset``; E1 held and timed on view 0's maps, V1 on its
+    volume.  Returns (the city directory, V1's and E1's ``dataset_view``
+    uses)."""
     import torch
     from PIL import Image
 
@@ -2176,6 +2290,7 @@ def phase_dataset_generation(projections, device="cuda",
     from gaussiancity_tpu_torch.data.datasets import get_dataset
     from gaussiancity_tpu_torch.inference.pipeline import (
         get_orbit_camera_poses)
+    from gaussiancity_tpu_torch.ops import extrusion as ext
     from gaussiancity_tpu_torch.ops import visibility as vis
 
     root = os.path.join(cli_root(), "data")
@@ -2188,11 +2303,9 @@ def phase_dataset_generation(projections, device="cuda",
                                    radius=220 * P // 512,
                                    altitude=260 * P // 512)
     dg.save_camera_poses(os.path.join(city, "CameraPoses.csv"), poses)
-    targets = [(dg, "load_projections"), (dg, "get_centers_from_projections"),
-               (dg, "generate_view"), (dg, "get_local_projections"),
-               (dg, "get_points_from_projections"),
-               (vis, "points_to_volume"), (vis, "visible_from_volume")]
+    targets = view_targets()
     vis.raycast.launches = 0
+    ext.extrude_rows.launches = 0
     with timed_calls(targets) as t:
         t0 = time.perf_counter()
         dg.generate_city("GOOGLE_EARTH", city, vol_shape=vol_shape,
@@ -2200,30 +2313,18 @@ def phase_dataset_generation(projections, device="cuda",
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     launches = vis.raycast.launches
+    e1_launches = ext.extrude_rows.launches
     n = DATASET_VIEWS
     check(launches == n, f"generate_city launched V1 {launches} times for "
           f"{n} views")
+    check(e1_launches == n * len(projections),
+          f"generate_city launched E1 {e1_launches} times for {n} views of "
+          f"{len(projections)} categories")
     check(all(len(t[name]) == n for _, name in targets[2:]),
           "generate_city did not run every stage once a view")
-    stages = {"extrude (host)": t["get_points_from_projections"],
-              "local projections (host)": t["get_local_projections"],
-              "volume": t["points_to_volume"],
-              "raycast (occupancy tables, V1, instance map)":
-                  t["visible_from_volume"]}
-    reindex = [g - sum(col) for g, col in zip(t["generate_view"],
-                                              zip(*stages.values()))]
-    write = (wall - sum(t["generate_view"]) - t["load_projections"][0]
-             - t["get_centers_from_projections"][0]) / n
-    log(f"dataset generation: {n} views of 960x540 over a "
-        f"{vol_shape} volume in {wall / 1e3:.2f} s "
-        f"({wall / n:.1f} ms a view); projections read "
-        f"{t['load_projections'][0]:.1f} ms, centres "
-        f"{t['get_centers_from_projections'][0]:.1f} ms; V1 launches {n}")
-    for name, ms in list(stages.items()) + [
-            ("reindex, masks (host)", reindex)]:
-        log(f"  stage {name}: " + " ".join(f"{m:.1f}" for m in ms)
-            + f"   median {float(np.median(ms)):.2f} ms")
-    log(f"  stage write (png + pkl, host): {write:.2f} ms a view (mean)")
+    stages = log_view_stages(t, wall, n, "dataset generation (960x540 over "
+                             f"a {vol_shape} volume)")
+    log(f"  launches: V1 {launches}, E1 {e1_launches}")
 
     # view 0 again, on the CPU by the plain path: the same files
     projections_png = dg.load_projections(os.path.join(city, "Projection"))
@@ -2274,13 +2375,16 @@ def phase_dataset_generation(projections, device="cuda",
     log(f"GoogleEarthDataset val item 0: {int(item['pts_mask'].sum())} "
         f"points, keys {sorted(item)}")
 
-    # V1 on view 0's volume, as generate_view builds it
-    pts_host = dg.get_points_from_projections("GOOGLE_EARTH",
-                                              projections_png)
-    pts = torch.as_tensor(pts_host, dtype=torch.int32, device=device)
-    mins = pts_host[:, :3].min(0)
-    offsets = torch.tensor([mins[0], mins[1], mins[2] - 1],
-                           dtype=torch.int32, device=device)
+    # E1 on view 0's maps and V1 on its volume, as generate_view builds
+    # them
+    maps = device_maps(projections_png["REST"], device)
+    e1_use = e1_measure("dataset view", maps, include_btm=False)
+    e1_use["launches"] = e1_launches
+    e1_use["stage_ms"] = stages["extrude (E1, maps uploaded)"]
+    pts = dg.get_points_from_projections("GOOGLE_EARTH", projections_png,
+                                         device=device)
+    offsets = pts[:, :3].min(0).values - torch.tensor(
+        [0, 0, 1], dtype=torch.int32, device=device)
     ids = torch.arange(1, len(pts) + 1, dtype=torch.int32, device=device)
     vol = vis.points_to_volume(pts[:, :3] - offsets, ids,
                                pts[:, 3:4].expand(-1, 3), *vol_shape)
@@ -2296,7 +2400,321 @@ def phase_dataset_generation(projections, device="cuda",
                      (float(K[1, 2]), float(K[0, 2])), (H, W))
     use["launches"] = launches
     use["view_ms"] = wall / n
-    return city, use
+    return city, use, e1_use
+
+
+GE_OSM_SIZE = 2560  # the OSM render: the 2048-pixel window and a margin
+GE_BUILDINGS = 320
+GE_VIEWS = 4
+GE_LNGLAT = (10.0, 45.0)  # the capture's target
+KITTI_VOL = (256, 256, 128)
+
+
+def web_mercator_lnglat(x, y, resolution: float = 1.0):
+    """The inverse of ``camera_recovery.lnglat_to_web_mercator_xy``."""
+    from gaussiancity_tpu_torch.data.camera_recovery import (
+        GOOGLE_EARTH_ZOOM_LEVEL)
+
+    world = (2.0 ** GOOGLE_EARTH_ZOOM_LEVEL) * 256 * resolution
+    lng = x / world * 360.0 - 180.0
+    lat = np.degrees(np.arctan(np.sinh(np.pi * (1.0 - 2.0 * y / world))))
+    return float(lng), float(lat)
+
+
+def write_google_earth_capture(root: str, seed: int = 0
+                               ) -> Tuple[str, str, str]:
+    """A synthetic Google Earth capture at the real width, as the JAX
+    suite's fixtures make it (``tests/test_osm_ingest.py::make_capture``,
+    ``tests/test_camera_recovery.py``): an OSM render (``hf.png`` and a
+    palette ``seg.png``, 2560 pixels a side) with a road lattice, a lake,
+    parks and zones and 320 buildings (some under construction), its
+    ``metadata.json``, and a capture directory with its Google Earth
+    Studio ``.esp`` project, camera path ``.json`` (4 frames, each over
+    the low corner of the 2048-pixel window and looking at its centre, so
+    that the 640-pixel volume holds what the lower half of the view sees)
+    and ``metadata.json``.  Returns (data dir, OSM dir, capture dir)."""
+    from PIL import Image
+
+    from gaussiancity_tpu_torch.data.camera_recovery import (
+        lnglat_to_web_mercator_xy)
+    from gaussiancity_tpu_torch.data.dataset_generator import CLASSES
+
+    cls = CLASSES["GOOGLE_EARTH"]
+    rng = np.random.default_rng(seed)
+    P = GE_OSM_SIZE
+    seg = np.full((P, P), cls["GREEN_LANDS"], np.uint8)
+    for _ in range(40):
+        y, x = rng.integers(0, P - 200, 2)
+        seg[y:y + rng.integers(40, 200), x:x + rng.integers(40, 200)] = \
+            cls["ZONE"]
+    hf = np.full((P, P), 2, np.uint16)
+    seg[1500:1800, 300:900] = cls["WATER"]
+    hf[1500:1800, 300:900] = 0
+    for b in range(GE_BUILDINGS):
+        y, x = rng.integers(8, P - 80, 2)
+        h, w = rng.integers(12, 60, 2)
+        seg[y:y + h, x:x + w] = (cls["CONSTRUCTION"] if b % 16 == 0
+                                 else cls["BLDG_FACADE"])
+        hf[y:y + h, x:x + w] = rng.integers(15, 120)
+    for c in range(40, P, 256):  # the road lattice, over everything
+        for sl in (np.s_[c:c + 20, :], np.s_[:, c:c + 20]):
+            seg[sl] = cls["ROAD"]
+            hf[sl] = 2
+    city_name, project = "Synthetic-01", "Synthetic-01-capture"
+    osm_dir = os.path.join(root, "osm")
+    osm = os.path.join(osm_dir, city_name)
+    os.makedirs(osm)
+    img = Image.fromarray(seg, mode="P")
+    img.putpalette(list(rng.integers(0, 255, 768, np.uint8)))
+    img.save(os.path.join(osm, "seg.png"))
+    Image.fromarray(hf).save(os.path.join(osm, "hf.png"))
+    lng, lat = GE_LNGLAT
+    X, Y = lnglat_to_web_mercator_xy(lng, lat, 1.0)
+    with open(os.path.join(osm, "metadata.json"), "w") as fp:
+        json.dump({"resolution": 1.0, "bounds": {
+            "xmin": float(X) - P / 2, "ymin": float(Y) - P / 2}}, fp)
+
+    data_dir = os.path.join(root, "google-earth")
+    cap = os.path.join(data_dir, project)
+    os.makedirs(cap)
+    esp = {"scenes": [{"attributes": [
+        {"type": "cameraGroup", "attributes": [
+            {"type": "cameraTargetEffect", "attributes": [
+                {"type": "poi", "attributes": [
+                    {"type": "longitudePOI",
+                     "value": {"relative": (lng + 180.0) / 360.0}},
+                    {"type": "latitudePOI", "value": {"relative": 0.4}},
+                    {"type": "altitudePOI", "value": {"relative": 6.0}},
+                ]}]}]}]}]}
+    with open(os.path.join(cap, f"{project}.esp"), "w") as fp:
+        json.dump(esp, fp)
+    with open(os.path.join(cap, "metadata.json"), "w") as fp:
+        json.dump({"clat": lat, "elevation": 5}, fp)
+    frames = []
+    for i in range(GE_VIEWS):
+        # window pixel (150 + 60 i, 200 + 40 i) at 180 + 5 i over ground
+        f_lng, f_lat = web_mercator_lnglat(float(X) - 1024 + 150 + 60 * i,
+                                           float(Y) - 1024 + 200 + 40 * i)
+        frames.append({"coordinate": {"longitude": f_lng, "latitude": f_lat,
+                                      "altitude": 180.0 + 5 * i},
+                       "fovVertical": 22.5})
+    with open(os.path.join(cap, f"{project}.json"), "w") as fp:
+        json.dump({"width": 1920, "height": 1080, "cameraFrames": frames},
+                  fp)
+    return data_dir, osm_dir, cap
+
+
+def _kitti_box(w, d, h, offset):
+    """KITTI-360 bbox corners, (bottom, top) pairs sharing XY."""
+    xy = np.array([[0, 0], [w, 0], [w, d], [0, d]], float)
+    out = []
+    for p in xy:
+        out += [[p[0], p[1], 0.0], [p[0], p[1], h]]
+    return np.asarray(out) + np.asarray(offset)
+
+
+def write_kitti_download(root: str) -> Tuple[str, str]:
+    """A small synthetic KITTI-360 download, as
+    ``tests/test_generate_dataset_cli.py::_kitti_download`` makes it: one
+    drive with 3 frames (one without a semantic map, dropped), a 3D-box
+    XML (a building, a road, a parked car and a stand of vegetation, so
+    that the views extrude two categories), the calibration and the
+    poses.  Returns (download root, drive)."""
+    from PIL import Image
+
+    from gaussiancity_tpu_torch.data import kitti_ingest as ki
+
+    drive = "2013_05_28_drive_0000_sync"
+    rgb_dir = os.path.join(root, "data_2d_raw", drive, "image_00",
+                           "data_rect")
+    seg_dir = os.path.join(root, "data_2d_semantics", "train", drive,
+                           "image_00", "semantic")
+    pose_dir = os.path.join(root, "data_poses", drive)
+    calib = os.path.join(root, "calibration")
+    bbox_dir = os.path.join(root, "data_3d_bboxes", "train_full")
+    for d in (rgb_dir, seg_dir, pose_dir, calib, bbox_dir):
+        os.makedirs(d)
+    img = Image.fromarray(np.zeros((4, 4), np.uint8))
+    for f in (0, 10, 20):
+        img.save(os.path.join(rgb_dir, "%010d.png" % f))
+    for f in (0, 10):
+        img.save(os.path.join(seg_dir, "%010d.png" % f))
+    rows = []
+    for i, f in enumerate((0, 10, 20)):
+        Rt = np.eye(4)  # [Right|Down|Forward]: looking along +y
+        Rt[:3, :3] = np.stack([[1.0, 0, 0], [0, 0, -1.0], [0, 1.0, 0]],
+                              axis=-1)
+        Rt[:3, 3] = [10.0, 1.0 + i, 2.0]
+        rows.append(np.concatenate([[f], Rt.reshape(-1)]))
+    np.savetxt(os.path.join(pose_dir, "cam0_to_world.txt"), np.array(rows))
+    with open(os.path.join(calib, "perspective.txt"), "w") as fp:
+        fp.write("P_rect_00: 552.554 0 682.049 0 0 552.554 238.769 0 "
+                 "0 0 1 0\nS_rect_00: 1408 376\n")
+
+    def mat(m):
+        m = np.asarray(m, float)
+        return (f"<rows>{m.shape[0]}</rows><cols>{m.shape[1]}</cols>"
+                f"<data>{' '.join(str(x) for x in m.ravel())}</data>")
+
+    faces = ki._prism_faces(4)
+    xml = "<opencv_storage>"
+    for k, (label, box) in enumerate((
+            ("building", _kitti_box(4, 6, 9, (0, 4, 0.5))),
+            ("road", _kitti_box(20, 3, 0.8, (0, 10, 0.9))),
+            ("car", _kitti_box(2, 4, 1.6, (14, 6, 0.5))),
+            ("vegetation", _kitti_box(3, 3, 1.5, (5, 14, 0.5))))):
+        xml += (f"<object{k}><label>{label}</label><dynamic>0</dynamic>"
+                f"<start_frame>0</start_frame><end_frame>100</end_frame>"
+                f"<transform>{mat(np.eye(4))}</transform>"
+                f"<vertices>{mat(box)}</vertices>"
+                f"<faces>{mat(faces)}</faces></object{k}>")
+    with open(os.path.join(bbox_dir, f"{drive}.xml"), "w") as fp:
+        fp.write(xml + "</opencv_storage>")
+    return root, drive
+
+
+def phase_raw_capture(e1: dict, device="cuda") -> None:
+    """From raw capture to training city on the card: the port's
+    ``process_city`` over a synthetic Google Earth capture at the real
+    width (``google_earth_projections`` at MAP_SIZE 2048, the poses, 4
+    views at 640 x 640 x 256; E1 once a view, the split of a view's time),
+    E1 held against its plain version on the 2048-pixel REST map (and on a
+    repeat) and timed beside the host extruders (NumPy and g++, wall
+    clock), one ``GoogleEarthDataset`` item read back; then a small
+    KITTI-360 drive through ``process_city`` on the card and on the CPU,
+    whose Points pkls and instance images must be equal.  Adds E1's
+    ``ge_2048`` use to ``e1``."""
+    import torch
+    from PIL import Image
+
+    from gaussiancity_tpu_torch.data import dataset_generator as dg
+    from gaussiancity_tpu_torch.data import generate_dataset as gd
+    from gaussiancity_tpu_torch.data import kitti_ingest as ki
+    from gaussiancity_tpu_torch.data.datasets import get_dataset
+    from gaussiancity_tpu_torch.native import extrude_points_native
+    from gaussiancity_tpu_torch.ops import extrusion as ext
+    from gaussiancity_tpu_torch.ops import visibility as vis
+
+    root = os.path.join(cli_root(), "raw")
+    t0 = time.perf_counter()
+    data_dir, osm_dir, cap = write_google_earth_capture(root)
+    log(f"synthetic Google Earth capture ({GE_OSM_SIZE}-pixel OSM render, "
+        f"{GE_BUILDINGS} buildings, {GE_VIEWS} frames) written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    targets = view_targets() + [(ki, "get_projections"),
+                                (gd, "recover_camera_parameters"),
+                                (dg, "dump_projections")]
+    vis.raycast.launches = 0
+    ext.extrude_rows.launches = 0
+    with timed_calls(targets) as t:
+        t0 = time.perf_counter()
+        gd.process_city("GOOGLE_EARTH", cap, osm_dir, DATASET_VOL,
+                        device=device)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    launches = ext.extrude_rows.launches
+    check(launches == GE_VIEWS and vis.raycast.launches == GE_VIEWS,
+          f"process_city launched E1 {launches} and V1 "
+          f"{vis.raycast.launches} times for {GE_VIEWS} views")
+    ingest = (t["get_projections"][0] + t["recover_camera_parameters"][0]
+              + t["dump_projections"][0])
+    log(f"process_city (Google Earth, MAP_SIZE 2048): {wall / 1e3:.2f} s; "
+        f"ingest {t['get_projections'][0]:.1f} ms, poses "
+        f"{t['recover_camera_parameters'][0]:.1f} ms, projection PNGs "
+        f"{t['dump_projections'][0]:.1f} ms")
+    stages = log_view_stages(t, wall - ingest, GE_VIEWS,
+                             f"Google Earth views (960x540 over a "
+                             f"{DATASET_VOL} volume)")
+
+    maps_np = dg.load_projections(os.path.join(cap, "Projection"))["REST"]
+    check(maps_np["INS"].shape == (2048, 2048) and set(maps_np) == {
+        "INS", "SEG", "TD_HF", "BU_HF", "PTS"},
+        "google_earth_projections did not make the 2048-pixel maps")
+    maps = device_maps(maps_np, device)
+    use = e1_measure("Google Earth 2048", maps, include_btm=False)
+    use["launches"] = launches
+    use["stage_ms"] = stages["extrude (E1, maps uploaded)"]
+    e1.setdefault("uses", {})["ge_2048"] = use
+    card_rows = ext.extrude_points_exact(
+        *maps, dg.get_seg_ins_relations("GOOGLE_EARTH"),
+        dg.class_scale_table("GOOGLE_EARTH"), False).cpu().numpy()
+    host = [maps_np[k].astype(np.int32) for k in ("INS", "TD_HF", "BU_HF")]
+    host.append(maps_np["PTS"] != 0)
+    host_args = (*host, dg.get_seg_ins_relations("GOOGLE_EARTH"),
+                 dg.class_scale_table("GOOGLE_EARTH"), False)
+    t0 = time.perf_counter()
+    np_rows = ext.extrude_points_np(*host_args)
+    use["numpy_ms"] = (time.perf_counter() - t0) * 1e3
+    extrude_points_native(*host_args)  # builds the library
+    t0 = time.perf_counter()
+    native_rows = extrude_points_native(*host_args)
+    use["native_ms"] = (time.perf_counter() - t0) * 1e3
+    check(np.array_equal(np_rows, card_rows)
+          and np.array_equal(native_rows, card_rows),
+          "the host extruders differ from E1 on the 2048-pixel map")
+    log(f"host extruders on the same map, the same {len(card_rows)} rows: "
+        f"NumPy {use['numpy_ms']:.1f} ms, g++ ({os.cpu_count()} cores, "
+        f"{min(os.cpu_count() or 1, 8)} threads) {use['native_ms']:.1f} ms, "
+        f"wall clock; E1 {use['ms']:.4f} ms a call on the card")
+
+    os.makedirs(os.path.join(cap, "footage"))
+    rng = np.random.default_rng(0)
+    name = os.path.basename(cap)
+    for i in range(GE_VIEWS):
+        Image.fromarray(rng.integers(0, 255, (540, 960, 3), np.uint8)).save(
+            os.path.join(cap, "footage", f"{name}_{i:02d}.jpeg"))
+    cfg = cli_config(data_dir, os.path.join(cli_root(), "out_raw"))
+    cfg = cfg.replace(dataset=cfg.dataset.replace(
+        n_views=GE_VIEWS, map_size=dg.CONSTANTS["GOOGLE_EARTH"]["MAP_SIZE"],
+        test_crop_size=(960, 540)))
+    item = get_dataset(cfg, "GOOGLE_EARTH", "val")[0]
+    check(item["rgb"].shape == (540, 960, 3)
+          and item["proj_hf"].shape == (cfg.dataset.proj_size,) * 2 + (1,)
+          and item["pts_mask"].sum() > 0,
+          "GoogleEarthDataset cannot read the city made from the capture")
+    log(f"GoogleEarthDataset val item 0 of the capture's city: "
+        f"{int(item['pts_mask'].sum())} points")
+
+    # KITTI-360: the same drive on the card and on the CPU
+    cities = {}
+    for i, dev in enumerate((device, "cpu")):
+        r, drive = write_kitti_download(os.path.join(root, f"kitti_{i}"))
+        city = os.path.join(ki.reorganize_kitti_360(r), drive)
+        ext.extrude_rows.launches = 0
+        t0 = time.perf_counter()
+        gd.process_city("KITTI_360", city, vol_shape=KITTI_VOL, device=dev)
+        n_cat = len(dg.load_projections(os.path.join(city, "Projection")))
+        n_views = len(os.listdir(os.path.join(city, "Points")))
+        log(f"KITTI-360 drive on {dev}: {n_views} views of {n_cat} "
+            f"categories at {KITTI_VOL} in {time.perf_counter() - t0:.1f} "
+            f"s; E1 launches {ext.extrude_rows.launches}")
+        if dev != "cpu":
+            check(ext.extrude_rows.launches == n_views * n_cat
+                  and n_views == 2 and n_cat == 2,
+                  "the KITTI-360 views did not launch E1 once a category "
+                  "a view")
+        cities[dev] = city
+    for sub in ("Points", "InstanceImage"):
+        names = sorted(os.listdir(os.path.join(cities["cpu"], sub)))
+        check(names == sorted(os.listdir(os.path.join(cities[device], sub))),
+              f"the KITTI-360 {sub} files differ between card and CPU")
+        for f in names:
+            a, b = (os.path.join(cities[d], sub, f) for d in (device, "cpu"))
+            if sub == "Points":
+                with open(a, "rb") as fa, open(b, "rb") as fb:
+                    pa, pb = pickle.load(fa), pickle.load(fb)
+                check(pa.keys() == pb.keys() and all(
+                    pa[k].dtype == pb[k].dtype and np.array_equal(pa[k], pb[k])
+                    for k in ("vpm", "msk", "pts")) and all(
+                    np.array_equal(pa["prj"][k], pb["prj"][k])
+                    for k in pb["prj"]) and len(pa["pts"]) > 0,
+                    f"KITTI-360 {f}: the card's pkl differs from the CPU's")
+            else:
+                with Image.open(a) as ia, Image.open(b) as ib:
+                    check(np.array_equal(np.array(ia), np.array(ib)),
+                          f"KITTI-360 {f}: the card's instance map differs")
+    log("KITTI-360: the card's Points pkls and instance images equal the "
+        "CPU's")
 
 
 def run_cli(args, what: str, device: str) -> Tuple[str, float]:
@@ -3820,9 +4238,17 @@ def run_phases(profiling: bool, t_start: float) -> int:
     phase_train_loop(device)
     log(f"phase time: training loop {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
-    city, v1_use = phase_dataset_generation(projections, device)
+    city, v1_use, e1_view = phase_dataset_generation(projections, device)
     next(k for k in kernels if k["name"] == "raycast").setdefault(
         "uses", {})["dataset_view"] = v1_use
+    e1 = {"name": "extrude", "route": "cuda",
+          "source": "gaussiancity_tpu_torch/csrc/extrude.cu",
+          "replaces": "gaussiancity_tpu/ops/extrusion.py:83",
+          **{k: e1_view[k] for k in (
+              "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+              "bound_by", "library_ms")},
+          "uses": {"dataset_view": e1_view}}
+    kernels.append(e1)
     log(f"phase time: dataset generation {time.perf_counter() - t_phase:.1f}"
         " s")
     t_phase = time.perf_counter()
@@ -3902,6 +4328,10 @@ def run_phases(profiling: bool, t_start: float) -> int:
     phase_cli_ddp(os.path.dirname(city))
     log(f"phase time: CLI on 2 processes {time.perf_counter() - t_phase:.1f}"
         " s")
+    t_phase = time.perf_counter()
+    phase_raw_capture(e1, "cuda")
+    log(f"phase time: raw capture to training city "
+        f"{time.perf_counter() - t_phase:.1f} s")
     # launches on the timed passes: REST frame, two-model frame, REST
     # train steps, BLDG train steps; K4's are those of its probe's timed
     # drive; per use, K3's from the REST train steps, G1's from the pass

@@ -25,7 +25,7 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 KERNELS = ("blend_fwd", "blend_bwd", "segment_sum", "raycast",
-           "hash_encode_fwd", "hash_encode_bwd", "gather_rowsum")
+           "hash_encode_fwd", "hash_encode_bwd", "gather_rowsum", "extrude")
 # -fmad=false: no fused multiply-adds, so the kernels round like their
 # plain PyTorch versions at the blend and DDA thresholds
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -59,6 +59,11 @@ _ARGTYPES = {
     "hash_encode_bwd": [P, P, P, P, I, I, I, I, I, F, F, P, P, P, P, P],
     # table, idx, R, M, out, stream
     "gather_rowsum": [P, P, I, LL, P, P],
+    # ins, td, bu, pts, map_bytes, h, w, scales, n_scales, bldg_min,
+    # car_min, facade_sem, car_sem, roof_offset, include_btm, z_cap,
+    # counts, incl (null: count pass), out (null: count pass), cap, stream
+    "extrude": [P, P, P, P, I, I, I, P, I, I, I, I, I, I, I, I, P, P, P,
+                LL, P],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

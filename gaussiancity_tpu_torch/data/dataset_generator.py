@@ -8,12 +8,14 @@ Per city: ``Projection/*.png`` -> ``CENTERS.pkl`` and, per camera pose of
 ({prj: local TD_HF / SEG [/ tlp], vpm, msk, pts [N, 5]}), the files that
 ``data.datasets.GoogleEarthDataset`` reads.
 
-Per view the host extrudes the footprints (``ops.extrusion``), and the
-device builds the id volume and raycasts it (``visibility.
-get_visible_points``: the volume scatter, then kernel V1 on a CUDA
-device).  The host keeps the frustum, the reindexing of the visible points
-and the file writes.  The raw-capture ingest that makes the projection
-maps is not ported."""
+Per view the device extrudes the footprints (``ops.extrusion``, kernel
+E1 on a CUDA device), builds the id volume and raycasts it (``visibility.
+get_visible_points``: the volume scatter, then kernel V1) and reindexes
+the visible points; only what the Points pkl holds comes back.  The host
+keeps the frustum, the local projection windows and the file writes.
+The raw-capture ingest that makes the projection maps is in
+``osm_ingest`` / ``kitti_ingest``, and the per-city entry point in
+``generate_dataset``."""
 
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ from gaussiancity_tpu_torch.camera import (intrinsic_to_fov,
 from gaussiancity_tpu_torch.device import resolve_device
 from gaussiancity_tpu_torch.ops import visibility as vis
 from gaussiancity_tpu_torch.ops.extrusion import (SegInsRelation,
-                                                  extrude_points_np)
+                                                  extrude_points_exact)
 
 # (upstream dataset_generator.py:42-118)
 CLASSES = {
@@ -241,12 +243,18 @@ def get_sky_points(far_plane, cam_z, cam_fov_y, patch_size, scale, class_id):
 
 
 def get_points_from_projections(dataset: str, projections,
-                                local_cords=None) -> np.ndarray:
-    """Extrude every category -> [N, 5] int32 (x, y, z, scale, instance),
+                                local_cords=None, device=None
+                                ) -> torch.Tensor:
+    """Extrude every category on ``device`` (the card unless the caller
+    asks for the CPU) -> [N, 5] int32 (x, y, z, scale, instance) there,
     inside the frustum ``local_cords`` where given; water points sit on
-    the water plane (upstream dataset_generator.py:1251-1331)."""
+    the water plane (upstream dataset_generator.py:1251-1331).  Each
+    category's maps (or their frustum crop, its ``fillPoly`` mask applied
+    to PTS on the host) are uploaded as they are and PTS as a bool mask,
+    and extruded by kernel E1 (``extrusion.extrude_points_exact``)."""
     import cv2
 
+    device = resolve_device(device)
     rel = get_seg_ins_relations(dataset)
     table = class_scale_table(dataset)
     water_z = CONSTANTS[dataset].get("WATER_Z", 0)
@@ -274,19 +282,20 @@ def get_points_from_projections(dataset: str, projections,
             maps["PTS"] = maps["PTS"] * mask
             off_x, off_y = min_x, min_y
 
-        pts = extrude_points_np(
-            np.asarray(maps["INS"], np.int32),
-            np.asarray(maps["TD_HF"], np.int32),
-            np.asarray(maps["BU_HF"], np.int32),
-            np.asarray(maps["PTS"], bool), rel, table,
-            include_btm_pts=c != "REST")
+        ins, td, bu, msk = (torch.as_tensor(np.ascontiguousarray(m),
+                                            device=device)
+                            for m in (maps["INS"], maps["TD_HF"],
+                                      maps["BU_HF"], maps["PTS"] != 0))
+        pts = extrude_points_exact(ins, td, bu, msk, rel, table,
+                                   include_btm_pts=c != "REST")
         if len(pts):
             pts[:, 0] += off_x
             pts[:, 1] += off_y
             if c == "REST" and "WATER" in CLASSES[dataset]:
                 pts[pts[:, 4] == CLASSES[dataset]["WATER"], 2] = water_z
             out.append(pts)
-    return np.concatenate(out, axis=0) if out else np.empty((0, 5), np.int32)
+    return (torch.cat(out) if out
+            else torch.zeros((0, 5), dtype=torch.int32, device=device))
 
 
 def get_seg_map_from_ins_map(dataset: str, ins_map: np.ndarray) -> np.ndarray:
@@ -308,9 +317,10 @@ def get_seg_map_from_ins_map(dataset: str, ins_map: np.ndarray) -> np.ndarray:
 def generate_view(dataset: str, projections, cam_pos, cam_quat,
                   vol_shape=(640, 640, 256),
                   seg_map: Optional[np.ndarray] = None, device=None):
-    """One view: extrusion, the id volume and its raycast on ``device``
-    (the card unless the caller asks for the CPU), the visible points
-    reindexed (upstream dataset_generator.py:1545-1686).
+    """One view on ``device`` (the card unless the caller asks for the
+    CPU): extrusion (kernel E1), the id volume, its raycast (kernel V1)
+    and the visible points reindexed, copied back only as the Points pkl
+    holds them (upstream dataset_generator.py:1545-1686).
 
     Returns ({prj, vpm, msk, pts}, the Points pkl's schema; the instance
     map [H, W])."""
@@ -326,36 +336,35 @@ def generate_view(dataset: str, projections, cam_pos, cam_quat,
 
     local = get_local_projections(
         projections["REST"], frustum, c["PROJECTION_SIZE"])
-    points = get_points_from_projections(dataset, projections, frustum)
+    points = get_points_from_projections(dataset, projections, frustum,
+                                         device)
 
-    mins = points[:, :3].min(0)
+    mins = points[:, :3].min(0).values
     K = camera_intrinsics(dataset)
     W, H = sensor_size(dataset)
     f32 = dict(dtype=torch.float32, device=device)
-    pts_dev = torch.as_tensor(points, dtype=torch.int32, device=device)
     vp_map, ins_map = vis.get_visible_points(
-        pts_dev, pts_dev[:, 3:4].expand(-1, 3),
+        points, points[:, 3:4].expand(-1, 3),
         torch.as_tensor(np.asarray(cam_pos, np.float32), **f32),
         torch.as_tensor(np.asarray(cam_quat, np.float32), **f32),
         float(K[0, 0]), (float(K[1, 2]), float(K[0, 2])), (H, W), vol_shape,
-        torch.tensor([mins[0], mins[1], mins[2] - 1], dtype=torch.int32,
-                     device=device))
-    vp_map = vp_map.cpu().numpy()
-    ins_map = ins_map.cpu().numpy()
+        mins - torch.tensor([0, 0, 1], dtype=mins.dtype, device=device))
     if dataset == "KITTI_360":
-        vp_map = np.fliplr(vp_map)
-        ins_map = np.fliplr(ins_map)
+        vp_map = torch.flip(vp_map, [1])
+        ins_map = torch.flip(ins_map, [1])
 
-    vp_idx = np.unique(vp_map)
+    vp_idx = torch.unique(vp_map)
     vp_idx = vp_idx[vp_idx >= 0]
+    vpm = torch.searchsorted(vp_idx, vp_map.contiguous())
+    ins_map = ins_map.cpu().numpy()
     msk = (get_seg_map_from_ins_map(dataset, ins_map) == seg_map
            if seg_map is not None
            else np.ones_like(ins_map, dtype=bool))
     return {
         "prj": local,
-        "vpm": np.searchsorted(vp_idx, vp_map),
+        "vpm": vpm.cpu().numpy(),
         "msk": msk,
-        "pts": points[vp_idx].astype(np.int64),
+        "pts": points[vp_idx.long()].long().cpu().numpy(),
     }, ins_map
 
 

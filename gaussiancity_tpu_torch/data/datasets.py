@@ -282,10 +282,10 @@ def get_dataset(cfg: Config, name: str, split: str) -> Dataset:
     if name not in DATASETS:
         raise ValueError(f"Unknown dataset: {name}")
     if cfg.memcached.enabled and IO._cache is None:
-        raise NotImplementedError(
-            "the PyTorch port has no memcached client yet: install a byte "
-            "cache with data.io.IO.configure_cache, or set "
-            "memcached.enabled False")
+        from gaussiancity_tpu_torch.data.memcache import MemcachedClient
+
+        IO.configure_cache(MemcachedClient(cfg.memcached.servers,
+                                           timeout=cfg.memcached.timeout_s))
     return DATASETS[name](cfg, split)
 
 

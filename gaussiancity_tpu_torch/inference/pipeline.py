@@ -193,13 +193,14 @@ class InferencePipeline:
         return t1
 
     # ------------------------------------------------------------------
-    # host-side point generation and visibility
+    # point generation and visibility
     # ------------------------------------------------------------------
 
     def build_points(self, projections: Dict[str, Dict[str, np.ndarray]],
                      water_z: int = 0) -> np.ndarray:
-        """Extrude all projection categories -> [N, 5] int
-        (x, y, z, scale, instance)."""
+        """Extrude all projection categories on the pipeline's device
+        (kernel E1 on the card, ``extrusion.extrude_points_exact``) ->
+        [N, 5] int32 (x, y, z, scale, instance) on the host."""
         ds = self.ds
         rel = ext.SegInsRelation(
             bldg_ins_min_id=ds.bldg_range[0],
@@ -211,15 +212,19 @@ class InferencePipeline:
             "KITTI_360" if ds.name == "KITTI_360" else "GOOGLE_EARTH")
         all_pts = []
         for c, p in projections.items():
-            pts = ext.extrude_points_np(
-                np.asarray(p["INS"], np.int32), np.asarray(p["TD_HF"],
-                                                           np.int32),
-                np.asarray(p["BU_HF"], np.int32), np.asarray(p["PTS"], bool),
-                rel, scales_tab, include_btm_pts=(c != "REST"))
+            maps = [np.ascontiguousarray(p[k]) for k in ("INS", "TD_HF",
+                                                          "BU_HF")]
+            maps = [torch.as_tensor(
+                m if m.dtype == np.int16 else m.astype(np.int32, copy=False),
+                device=self.device) for m in maps]
+            maps.append(torch.as_tensor(np.asarray(p["PTS"]) != 0,
+                                        device=self.device))
+            pts = ext.extrude_points_exact(*maps, rel, scales_tab,
+                                           include_btm_pts=(c != "REST"))
             if c == "REST":
                 pts[pts[:, 4] == 5, 2] = water_z  # WATER class id
             all_pts.append(pts)
-        return np.concatenate(all_pts, axis=0)
+        return torch.cat(all_pts).cpu().numpy()
 
     def _volume_origin(self, points: np.ndarray) -> np.ndarray:
         mins = points[:, :3].min(0)

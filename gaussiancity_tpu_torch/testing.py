@@ -3,11 +3,32 @@
 small PTv3 of the JAX test suite (``tests/test_ptv3.py``), a BLDG batch
 that it finds neighbours in, and the rank workers of their runs on
 several ranks (``parallel.launch.spawn_ranks``), which live here so that
-a spawned rank imports no test module and nothing of JAX."""
+a spawned rank imports no test module and nothing of JAX; and
+``share_cpu_cores``, the CPU threads of a test process."""
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
+
+
+def share_cpu_cores() -> int:
+    """Give this test process its share of the host's cores for torch's
+    CPU threads: the cores over pytest-xdist's workers
+    (``PYTEST_XDIST_WORKER_COUNT``; all of them without xdist), at least
+    one, and the same to the processes it starts (``OMP_NUM_THREADS``).
+    Each worker's torch otherwise runs a thread a core, and the workers'
+    OpenMP threads, spinning while they wait, then outnumber the cores
+    several times over.  Returns the thread count."""
+    import torch
+
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    n = max(1, (os.cpu_count() or 1) // max(1, workers))
+    if torch.get_num_threads() != n:
+        torch.set_num_threads(n)
+    os.environ["OMP_NUM_THREADS"] = str(n)
+    return n
 
 # keyword arguments of ``PTv3Config`` in either package: three levels at
 # widths 8-32, one block each, patches of 32

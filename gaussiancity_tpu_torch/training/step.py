@@ -273,6 +273,7 @@ class Trainer:
                               gan_w, dis_update=True)
             loss_d = fake_l + real_l
             loss_d.backward()
+            _zero_missing_grads(self.d_opt)
             self.d_opt.step()
             metrics.update(DisLoss=loss_d.detach(), GANLossFake=fake_l.detach(),
                            GANLossReal=real_l.detach())
@@ -296,6 +297,7 @@ class Trainer:
         self.g_opt.zero_grad(set_to_none=True)
         loss_g.backward()
         t0 = self._record("backward", t0)
+        _zero_missing_grads(self.g_opt)
         self.g_opt.step()
         self._record("adam", t0)
         self.step += 1
@@ -346,6 +348,16 @@ class Trainer:
             self.d_opt.load_state_dict(state["d_opt"])
 
 
+def _zero_missing_grads(opt: torch.optim.Optimizer) -> None:
+    """Give every parameter that autograd left without a gradient a zero
+    one, so that Adam steps it as optax does: its moments decay and it
+    moves by them (``torch.optim.Adam`` skips a ``None`` gradient)."""
+    for group in opt.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+
+
 def make_train_step(trainer: Trainer):
     """The step as a function of (batch, rng).  The port runs eagerly:
     there is nothing to compile."""
@@ -377,17 +389,13 @@ class DataParallelSync:
 
     def gradients(self, module: torch.nn.Module) -> None:
         """Average ``module``'s gradients over the ranks, in parameter
-        order.  A gradient that is None counts as zeros, as JAX's
-        gradients are, so every rank sends a buffer of the same size; above
-        one rank every parameter then holds the average (a rank whose
-        autograd skipped a parameter takes the others' gradient), and at
-        one rank a None stays None, as ``Trainer.train_step`` leaves it."""
+        order.  ``Trainer.train_step`` has given every parameter a
+        gradient (zeros where autograd skipped it, as JAX's gradients are),
+        so every rank sends a buffer of the same size."""
         params = list(module.parameters())
-        flat = self._mean_(_flat([p.grad if p.grad is not None
-                                  else torch.zeros_like(p) for p in params]))
+        flat = self._mean_(_flat([p.grad for p in params]))
         for p, g in zip(params, flat.split([p.numel() for p in params])):
-            if p.grad is not None or self.world > 1:
-                p.grad = g.view_as(p).to(p.dtype)
+            p.grad = g.view_as(p).to(p.dtype)
 
     def state(self, trainer: Trainer, metrics: Dict[str, torch.Tensor]
               ) -> Dict[str, torch.Tensor]:

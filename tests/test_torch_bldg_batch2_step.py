@@ -29,9 +29,11 @@ from gaussiancity_tpu.ops.rasterizer import (
 from gaussiancity_tpu.training.step import Trainer as JTrainer
 from gaussiancity_tpu.utils import helpers as jhelpers
 
-from gaussiancity_tpu_torch.testing import tiny_bldg_batch
+from gaussiancity_tpu_torch.testing import tiny_bldg_batch, share_cpu_cores
 from test_torch_bldg_training import (_port_trainer, bldg_configs,
                                       check_steps_match_jax, run_jax)
+
+share_cpu_cores()
 
 N_PTS = 128
 N_MASKED = 32

@@ -31,11 +31,13 @@ from gaussiancity_tpu.training.step import Trainer as JTrainer
 from gaussiancity_tpu_torch import interop
 from gaussiancity_tpu_torch.config import Config, PTv3Config, car_recipe
 from gaussiancity_tpu_torch.models import ptv3
-from gaussiancity_tpu_torch.testing import TINY_PTV3 as TINY
+from gaussiancity_tpu_torch.testing import TINY_PTV3 as TINY, share_cpu_cores
 from gaussiancity_tpu_torch.testing import tiny_bldg_batch
 from gaussiancity_tpu_torch.training.step import Trainer
 from gaussiancity_tpu_torch.utils import helpers
 from test_train_step import tiny_config
+
+share_cpu_cores()
 
 # losses: float32 sums taken in another order than XLA's
 LOSS_ATOL, LOSS_RTOL = 1e-5, 1e-4

@@ -38,12 +38,15 @@ from gaussiancity_tpu_torch.data import dataset_generator as dg
 from gaussiancity_tpu_torch.inference import loader
 from gaussiancity_tpu_torch.inference import pipeline
 from gaussiancity_tpu_torch.training import checkpoint
+from gaussiancity_tpu_torch.testing import share_cpu_cores
 
 from test_dataset_generator import synthetic_city
 from test_inference import synthetic_projections
 from test_torch_dataset_generator import (_poses, exact_visible_from_volume,
                                           record_calls)
 from test_torch_pipeline import bldg_pair, rest_pair  # noqa: F401 fixtures
+
+share_cpu_cores()
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -26,11 +26,15 @@ from gaussiancity_tpu_torch.config import (
     PTv3Config, RasterizerConfig, TrainConfig)
 from gaussiancity_tpu_torch.data import datasets
 from gaussiancity_tpu_torch.data.io import IO
+from gaussiancity_tpu_torch.data.memcache import MemcachedClient
 from gaussiancity_tpu_torch.training import checkpoint
 from gaussiancity_tpu_torch.training.train import train
 from gaussiancity_tpu_torch.utils import helpers
 from gaussiancity_tpu_torch.utils.average_meter import AverageMeter
 from gaussiancity_tpu_torch.utils.summary_writer import SummaryWriter
+from gaussiancity_tpu_torch.testing import share_cpu_cores
+
+share_cpu_cores()
 
 RECIPES = {"REST": jrest_recipe, "BLDG": jbldg_recipe}
 
@@ -79,8 +83,11 @@ class TestSyntheticBatches:
         with pytest.raises(ValueError):
             datasets.get_dataset(cfg, "NOPE", "train")
         mc = cfg.replace(memcached=cfg.memcached.replace(enabled=True))
-        with pytest.raises(NotImplementedError, match="memcached"):
+        try:
             datasets.get_dataset(mc, "SYNTHETIC", "train")
+            assert isinstance(IO._cache, MemcachedClient)
+        finally:
+            IO.configure_cache(None)
         ds = datasets.get_dataset(cfg, "GOOGLE_EARTH", "train")
         assert len(ds) == 0 and ds.get_K().shape == (3, 3)
 

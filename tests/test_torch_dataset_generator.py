@@ -39,9 +39,12 @@ from gaussiancity_tpu_torch.config import Config, DatasetConfig, TrainConfig
 from gaussiancity_tpu_torch.data import dataset_generator as dg
 from gaussiancity_tpu_torch.data.datasets import get_dataset
 from gaussiancity_tpu_torch.ops import visibility as vis
+from gaussiancity_tpu_torch.testing import share_cpu_cores
 
 from test_dataset_generator import synthetic_city
 from test_extrusion_visibility import numpy_dda
+
+share_cpu_cores()
 
 VOL = (128, 128, 48)
 WINDOW = 128  # the local projection window of both packages in this file
@@ -270,7 +273,8 @@ class TestPoints:
     def test_points_match_jax(self, tmp_path):
         projections = synthetic_city(str(tmp_path))
         _assert_same(
-            dg.get_points_from_projections("GOOGLE_EARTH", projections),
+            dg.get_points_from_projections("GOOGLE_EARTH", projections,
+                                           device="cpu").numpy(),
             jdg.get_points_from_projections("GOOGLE_EARTH", projections))
 
     def test_kitti_frustum_crop_matches_jax(self):
@@ -286,7 +290,8 @@ class TestPoints:
         assert cords.min() < 0
         want = jdg.get_points_from_projections("KITTI_360", projections,
                                                cords)
-        got = dg.get_points_from_projections("KITTI_360", projections, cords)
+        got = dg.get_points_from_projections("KITTI_360", projections, cords,
+                                             device="cpu").numpy()
         _assert_same(got, want, "points")
         assert (want[:, 4] == 10005).any() and len(want) < len(
             jdg.get_points_from_projections("KITTI_360", projections))

@@ -12,7 +12,8 @@ test_torch_models.py (the hash-grid use of K3 and G1's plain version),
 test_torch_segment_sum.py (K3's module) and test_torch_visibility.py (V1
 and its occupancy tables).  K4 is the JAX package's gather probe
 and has no JAX counterpart on the CPU.  G1b's plain version is held to
-the JAX custom VJP by test_torch_models.py."""
+the JAX custom VJP by test_torch_models.py, E1's (the footprint
+extrusion) to the JAX extruders by test_torch_extrusion.py."""
 
 import numpy as np
 import pytest
@@ -24,6 +25,9 @@ from gaussiancity_tpu_torch.ops import gather_rowsum as gr
 from gaussiancity_tpu_torch.ops import hash_grid, hash_grid_bwd
 from gaussiancity_tpu_torch.ops import visibility as vis
 from gaussiancity_tpu_torch.ops.rasterizer import binning, blend, preprocess
+from gaussiancity_tpu_torch.testing import share_cpu_cores
+
+share_cpu_cores()
 
 pytestmark = pytest.mark.cuda
 
@@ -757,3 +761,120 @@ def test_bldg_batch2_step_card_matches_cpu(dev, monkeypatch):
             tol = max(1e-3 * float(want.abs().max()), 1e-5 * top)
             err = float((g_card[name] - want).abs().max())
             assert err <= tol, (name, err, tol, top)
+
+
+# ---------------------------------------------------------------------------
+# E1: footprint extrusion
+# ---------------------------------------------------------------------------
+
+
+def _extrusion_maps(seed, H, W):
+    """Blocks of every Google Earth class (the car sentinel 32767 too) at
+    random heights on roads, some walks empty (TD < BU), a random PTS."""
+    rng = np.random.default_rng(seed)
+    ins = np.ones((H, W), np.int32)
+    td = np.full((H, W), 2, np.int32)
+    bu = np.zeros((H, W), np.int32)
+    for k in range(max(8, H * W // 400)):
+        cls = [0, 3, 4, 5, 6, 32767, 100 + 2 * k][k % 7]
+        y, x = rng.integers(0, max(1, H - 4)), rng.integers(0, max(1, W - 4))
+        h, w = rng.integers(2, 14, 2)
+        ins[y:y + h, x:x + w] = cls
+        td[y:y + h, x:x + w] = rng.integers(0, 60)
+        bu[y:y + h, x:x + w] = rng.integers(0, 5)
+    low = rng.random((H, W)) < 0.05
+    bu[low] = td[low] + rng.integers(1, 4, int(low.sum()))
+    pts = rng.random((H, W)) > 0.25
+    return ins, td, bu, pts
+
+
+EXTRUDE_CASES = {
+    "blocks": (0, 96, 80),
+    "wide": (1, 33, 517),  # rows not a multiple of the block, odd width
+    "thin": (2, 3, 64),  # every pixel inside the forced edge band
+    "one_pixel": (3, 1, 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(EXTRUDE_CASES))
+@pytest.mark.parametrize("include_btm", [True, False])
+def test_extrude_kernel_matches_plain(dev, case, include_btm):
+    """E1's rows bit-equal to the plain version's (order included), on a
+    repeat too, and one launch counted a call."""
+    from gaussiancity_tpu_torch.ops import extrusion as ext
+
+    maps = [torch.as_tensor(a, device=dev)
+            for a in _extrusion_maps(*EXTRUDE_CASES[case])]
+    args = (*maps, ext.SegInsRelation(), ext.GOOGLE_EARTH_CLASS_SCALES,
+            include_btm)
+    n0 = ext.extrude_rows.launches
+    got = ext.extrude_points_exact(*args)
+    again = ext.extrude_points_exact(*args)
+    assert ext.extrude_rows.launches == n0 + 2
+    want, n = ext.extrude_rows_plain(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    assert int(n) == len(want)
+    assert torch.equal(got, want) and torch.equal(got, again)
+
+
+def test_extrude_kernel_floor_division_and_empty(dev):
+    """Columns with TD < BU emit nothing (C's truncating division would
+    give them one voxel); no masked pixel, and no rows at all, give an
+    empty [0, 5] list; int16 maps as the PNGs load are widened alike."""
+    from gaussiancity_tpu_torch.ops import extrusion as ext
+
+    ins, td, bu, pts = _extrusion_maps(4, 40, 40)
+    rel, table = ext.SegInsRelation(), ext.GOOGLE_EARTH_CLASS_SCALES
+    for maps in ((ins, td, td + 1, pts), (ins, td, td + 3, pts),
+                 (ins, td, bu, np.zeros_like(pts)),
+                 (ins.astype(np.int16), td.astype(np.int16),
+                  bu.astype(np.int16), pts.astype(np.int16))):
+        t = [torch.as_tensor(a, device=dev) for a in maps]
+        t[3] = t[3] != 0
+        got = ext.extrude_points_exact(*t, rel, table)
+        want, _ = ext.extrude_rows_plain(*[a.cpu() for a in t], rel, table)
+        assert got.shape == want.shape == (len(want), 5)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("types", [
+    ("int16", "int16", "int16", "bool"),  # the PNG maps as uploaded
+    ("int16", "int16", "int16", "uint8"),
+    ("int32", "int32", "int32", "int16"),  # a PTS converted first
+    ("int16", "int32", "int16", "bool"),  # mixed maps widened to int32
+])
+def test_extrude_kernel_map_types(dev, types):
+    """E1 reads int16 and int32 maps and a bool or uint8 PTS as given,
+    and converts other types first: the rows equal the plain version's
+    on the int32 maps."""
+    from gaussiancity_tpu_torch.ops import extrusion as ext
+
+    maps = _extrusion_maps(6, 48, 56)
+    rel, table = ext.SegInsRelation(), ext.GOOGLE_EARTH_CLASS_SCALES
+    got = ext.extrude_points_exact(
+        *[torch.as_tensor(a.astype(t), device=dev)
+          for a, t in zip(maps, types)], rel, table)
+    want, _ = ext.extrude_rows_plain(*[torch.as_tensor(a) for a in maps],
+                                     rel, table)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("d_max,n_max", [(16, 64), (16, 1 << 16),
+                                         (80, 5000), (80, 1 << 16)])
+def test_extrude_kernel_z_cap_and_capacity(dev, d_max, n_max):
+    """The padded form: the z cap (d_max below and above the tallest
+    column, 57), the first n_max rows, the zero padding, the validity
+    mask and the overflow equal the plain version's."""
+    from gaussiancity_tpu_torch.ops import extrusion as ext
+
+    maps = _extrusion_maps(5, 64, 72)
+    args = (ext.SegInsRelation(), ext.GOOGLE_EARTH_CLASS_SCALES, d_max,
+            n_max, False)
+    got = ext.extrude_points(*[torch.as_tensor(a, device=dev)
+                               for a in maps], *args)
+    want = ext.extrude_points(*[torch.as_tensor(a) for a in maps], *args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+    assert (int(want[2]) > 0) == (n_max < 1 << 16)

@@ -24,9 +24,12 @@ from gaussiancity_tpu_torch.losses import PerceptualLoss, smoothness_loss
 from gaussiancity_tpu_torch.ops.rasterizer import debug, rasterize
 from gaussiancity_tpu_torch.ops.rasterizer.naive import naive_render
 from gaussiancity_tpu_torch.utils import profiling
+from gaussiancity_tpu_torch.testing import share_cpu_cores
 from test_torch_model_options import _rel_close
 from test_torch_ptv3 import _np_tree
 from test_torch_rasterizer import jax_args, np_camera, np_scene, torch_args
+
+share_cpu_cores()
 
 # float32 convolutions and sums in another order than XLA's
 RTOL = 1e-4

@@ -18,8 +18,10 @@ from gaussiancity_tpu.models import ptv3 as jptv3
 from gaussiancity_tpu_torch import interop
 from gaussiancity_tpu_torch.config import PTv3Config
 from gaussiancity_tpu_torch.models import generator, ptv3
-from gaussiancity_tpu_torch.testing import TINY_PTV3 as TINY
+from gaussiancity_tpu_torch.testing import TINY_PTV3 as TINY, share_cpu_cores
 from test_torch_ptv3 import _np_tree, _points, _port, _with_random_stats
+
+share_cpu_cores()
 
 # float32 convolutions, matmuls and sums in another order than XLA's
 ATOL, RTOL = 1e-5, 1e-4

@@ -23,8 +23,11 @@ from gaussiancity_tpu.models import Discriminator as JDiscriminator
 from gaussiancity_tpu_torch import interop
 from gaussiancity_tpu_torch.losses.perceptual import PerceptualLoss
 from gaussiancity_tpu_torch.models.discriminator import Discriminator
+from gaussiancity_tpu_torch.testing import share_cpu_cores
 from test_torch_models import _generator_pair, strict_jit
 from test_torch_training import _images, _np
+
+share_cpu_cores()
 
 BF16_ULP = 2.0 ** -8
 # a bf16 forward through PTv3: a few flipped roundings, each moving the

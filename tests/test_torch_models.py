@@ -22,8 +22,11 @@ from gaussiancity_tpu_torch.config import (PTv3Config, bldg_recipe,
 from gaussiancity_tpu_torch.models import generator
 from gaussiancity_tpu_torch.models.generator import Generator
 from gaussiancity_tpu_torch.ops import gather_rowsum, hash_grid, hash_grid_bwd
+from gaussiancity_tpu_torch.testing import share_cpu_cores
 
 from test_torch_ptv3 import TINY as TINY_PTV3
+
+share_cpu_cores()
 
 # float32 sums of up to 2^D corner products and matmuls taken in another
 # order than XLA's

@@ -20,12 +20,14 @@ from gaussiancity_tpu_torch import testing
 from gaussiancity_tpu_torch.data import datasets
 from gaussiancity_tpu_torch.parallel import mesh
 from gaussiancity_tpu_torch.parallel.launch import spawn_ranks
-from gaussiancity_tpu_torch.testing import tiny_bldg_batch
+from gaussiancity_tpu_torch.testing import tiny_bldg_batch, share_cpu_cores
 from gaussiancity_tpu_torch.training import checkpoint
 from gaussiancity_tpu_torch.training.step import Trainer, rank_generator
 from test_torch_bldg_training import bldg_configs
 from test_torch_data import tiny_train_cfg
 from test_torch_parallel_step import RANK_TIMEOUT_S, rest_case
+
+share_cpu_cores()
 
 
 class TestMesh:

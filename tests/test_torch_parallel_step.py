@@ -35,11 +35,13 @@ from gaussiancity_tpu.training.step import (
 from gaussiancity_tpu_torch import interop, testing
 from gaussiancity_tpu_torch.config import Config
 from gaussiancity_tpu_torch.parallel.launch import spawn_ranks
-from gaussiancity_tpu_torch.testing import tiny_bldg_batch
+from gaussiancity_tpu_torch.testing import tiny_bldg_batch, share_cpu_cores
 from gaussiancity_tpu_torch.utils import helpers
 from test_torch_bldg_training import (LOSS_ATOL, LOSS_RTOL, REL, ZERO_GRAD,
                                       Z_DIM, _JPTv3NoDropPath, bldg_configs)
 from test_train_step import synthetic_batch, tiny_config
+
+share_cpu_cores()
 
 # a spawned rank that deadlocks fails its test within this
 RANK_TIMEOUT_S = 240

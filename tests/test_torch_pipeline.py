@@ -23,8 +23,11 @@ from gaussiancity_tpu_torch import interop
 from gaussiancity_tpu_torch.config import Config
 from gaussiancity_tpu_torch.inference import pipeline
 from gaussiancity_tpu_torch.models.generator import Generator
+from gaussiancity_tpu_torch.testing import share_cpu_cores
 
 from test_inference import synthetic_projections, tiny_cfg
+
+share_cpu_cores()
 
 ROOT = Path(__file__).resolve().parents[1]
 

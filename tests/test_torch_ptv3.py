@@ -22,7 +22,9 @@ from gaussiancity_tpu_torch import interop
 from gaussiancity_tpu_torch.config import PTv3Config
 from gaussiancity_tpu_torch.models import ptv3
 from gaussiancity_tpu_torch.ops import serialization as ser
-from gaussiancity_tpu_torch.testing import TINY_PTV3 as TINY
+from gaussiancity_tpu_torch.testing import TINY_PTV3 as TINY, share_cpu_cores
+
+share_cpu_cores()
 
 # float32 matmuls, softmaxes and norms taken in another order than XLA's
 ATOL, RTOL = 1e-5, 1e-4

@@ -22,6 +22,9 @@ from gaussiancity_tpu_torch.camera import CameraModel
 from gaussiancity_tpu_torch.config import RasterizerConfig
 from gaussiancity_tpu_torch.ops.rasterizer import binning, blend, preprocess
 from gaussiancity_tpu_torch.ops.rasterizer import rasterize
+from gaussiancity_tpu_torch.testing import share_cpu_cores
+
+share_cpu_cores()
 
 # the JAX suite's tolerance between its own two blend backends
 # (tests/test_blend_pallas.py:32)

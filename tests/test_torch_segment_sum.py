@@ -16,6 +16,9 @@ from gaussiancity_tpu.ops import hash_grid_bwd as jbwd
 from gaussiancity_tpu.ops.rasterizer.blend import _reduce_rows_mxu
 
 from gaussiancity_tpu_torch.ops import hash_grid_bwd
+from gaussiancity_tpu_torch.testing import share_cpu_cores
+
+share_cpu_cores()
 
 # the JAX kernel sums through a one-hot matmul on a hi/lo bf16 split of
 # the payload, exact to about 2^-16 relative: tolerance relative to the

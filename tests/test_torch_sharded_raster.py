@@ -34,7 +34,10 @@ from gaussiancity_tpu_torch.models.generator import Generator
 from gaussiancity_tpu_torch.ops.rasterizer import rasterize
 from gaussiancity_tpu_torch.parallel.launch import spawn_ranks
 from gaussiancity_tpu_torch.parallel.sharded_raster import band_height
+from gaussiancity_tpu_torch.testing import share_cpu_cores
 from test_rasterizer import make_scene
+
+share_cpu_cores()
 
 # tests/test_sharded_raster.py: image atol / rtol, gradients atol
 # relative to each gradient's largest magnitude

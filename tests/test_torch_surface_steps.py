@@ -17,12 +17,14 @@ from gaussiancity_tpu.training.step import Trainer as JTrainer
 from gaussiancity_tpu_torch import interop
 from gaussiancity_tpu_torch.config import Config, PTv3Config
 from gaussiancity_tpu_torch.models import ptv3
-from gaussiancity_tpu_torch.testing import TINY_PTV3 as TINY
+from gaussiancity_tpu_torch.testing import TINY_PTV3 as TINY, share_cpu_cores
 from gaussiancity_tpu_torch.training.step import Trainer
 from test_torch_model_surface import BF16_GRAD_RTOL, _max_err
 from test_torch_models import strict_compile
 from test_torch_training import _np
 from test_train_step import synthetic_batch, tiny_config
+
+share_cpu_cores()
 
 # float32 sums in another order than XLA's (the B = 2 PTv3 step)
 ATOL, RTOL = 1e-5, 1e-4

@@ -15,6 +15,7 @@ import optax
 import pytest
 import torch
 
+from gaussiancity_tpu.config import Config as JConfig
 from gaussiancity_tpu.losses import gan_loss as jgan_loss
 from gaussiancity_tpu.losses import masked_l1 as jmasked_l1
 from gaussiancity_tpu.losses.perceptual import PerceptualLoss as JPLoss
@@ -28,8 +29,11 @@ from gaussiancity_tpu_torch.losses.perceptual import (
     PerceptualLoss, check_vgg_weights)
 from gaussiancity_tpu_torch.models.discriminator import Discriminator
 from gaussiancity_tpu_torch.training import checkpoint
-from gaussiancity_tpu_torch.training.step import Trainer
+from gaussiancity_tpu_torch.training.step import Trainer, _zero_missing_grads
+from gaussiancity_tpu_torch.testing import share_cpu_cores
 from test_train_step import synthetic_batch, tiny_config
+
+share_cpu_cores()
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -266,6 +270,92 @@ class TestTrainStep:
         m1, m2 = t.train_step(tbatch), t2.train_step(tbatch)
         for k in m1:
             assert float(m1[k]) == float(m2[k]), k
+
+
+def test_train_step_steps_parameters_out_of_the_graph_as_optax():
+    """Through ``Trainer.train_step``: a parameter in G's and one in D's
+    optimizer, given one Adam step with a gradient and then left out of
+    the graph for two train steps, move as optax's adam moves them with
+    zero gradients (D's learning rate on its warm-up ramp), to 1e-6."""
+    jcfg = tiny_config()
+    jcfg = jcfg.replace(train=jcfg.train.replace(
+        discriminator=jcfg.train.discriminator.replace(n_warmup_iters=1)))
+    t = Trainer(Config.from_dict(jcfg.to_dict()), device="cpu")
+    tbatch = {k: torch.from_numpy(np.array(v)) for k, v in
+              synthetic_batch(jax.random.PRNGKey(1), jcfg).items()}
+    tr = t.cfg.train
+    rng = np.random.default_rng(1)
+    w0, g1 = (rng.normal(size=(2, 3)).astype(np.float32) for _ in range(2))
+    lrs = {"G": [tr.generator.lr] * 3,
+           "D": [tr.discriminator.lr, t.d_learning_rate(0),
+                 t.d_learning_rate(1)]}
+    extra = {}
+    for i, (name, opt) in enumerate((("G", t.g_opt), ("D", t.d_opt))):
+        p = torch.nn.Parameter(torch.tensor(w0[i]))
+        opt.add_param_group({"params": [p], "lr": lrs[name][0]})
+        p.grad = torch.tensor(g1[i])
+        opt.step()  # every other parameter has no gradient yet
+        extra[name] = p
+    for _ in range(2):
+        t.train_step(tbatch)
+    adam = optax.scale_by_adam(b1=tr.betas[0], b2=tr.betas[1], eps=tr.eps)
+    for i, name in enumerate(("G", "D")):
+        assert torch.equal(extra[name].grad, torch.zeros(3)), name
+        w, state = jnp.asarray(w0[i]), adam.init(jnp.asarray(w0[i]))
+        for g, lr in zip((g1[i], np.zeros(3, np.float32),
+                          np.zeros(3, np.float32)), lrs[name]):
+            upd, state = adam.update(jnp.asarray(g), state)
+            w = w - lr * upd
+        np.testing.assert_allclose(extra[name].detach().numpy(),
+                                   np.asarray(w), rtol=0, atol=1e-6,
+                                   err_msg=name)
+
+
+def test_adam_steps_a_parameter_left_out_of_the_graph_as_optax():
+    """A parameter used on step 1 and not on step 2: optax's adam (the
+    JAX package's settings) applies a zero gradient on step 2, decaying
+    the moments and moving the parameter by them; the port's optimizers,
+    with ``Trainer.train_step``'s zero fill, do the same (to 1e-6)."""
+    tr = JConfig().train
+    b1, b2 = tr.betas
+    rng = np.random.default_rng(0)
+    w0 = {k: rng.normal(size=(3,)).astype(np.float32) for k in "ab"}
+    x = [rng.normal(size=(3,)).astype(np.float32) for _ in range(2)]
+
+    def loss(w, xi, use_b):
+        out = jnp.sum(w["a"] * xi) ** 2
+        return out + jnp.sum(w["b"] * xi) ** 2 if use_b else out
+
+    tx = optax.adam(tr.generator.lr, b1=b1, b2=b2, eps=tr.eps)
+    jw = {k: jnp.asarray(v) for k, v in w0.items()}
+    state = tx.init(jw)
+    for xi, use_b in zip(x, (True, False)):
+        g = jax.grad(loss)(jw, jnp.asarray(xi), use_b)
+        upd, state = tx.update(g, state, jw)
+        jw = optax.apply_updates(jw, upd)
+
+    def port(fill):
+        w = {k: torch.nn.Parameter(torch.tensor(v)) for k, v in w0.items()}
+        opt = torch.optim.Adam(list(w.values()), lr=tr.generator.lr,
+                               betas=(b1, b2), eps=tr.eps)
+        for xi, use_b in zip(x, (True, False)):
+            xi = torch.as_tensor(xi)
+            out = (w["a"] * xi).sum() ** 2
+            if use_b:
+                out = out + (w["b"] * xi).sum() ** 2
+            opt.zero_grad(set_to_none=True)
+            out.backward()
+            if fill:
+                _zero_missing_grads(opt)
+            opt.step()
+        return {k: v.detach().numpy().copy() for k, v in w.items()}
+
+    got, skipped = port(True), port(False)
+    for k in "ab":
+        np.testing.assert_allclose(got[k], np.asarray(jw[k]), rtol=0,
+                                   atol=1e-6, err_msg=k)
+    # the control: without the fill Adam skips b on step 2
+    assert np.abs(skipped["b"] - np.asarray(jw["b"])).max() > 1e-6
 
 
 _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "gaussiancity_tpu")

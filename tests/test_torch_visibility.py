@@ -29,8 +29,11 @@ from gaussiancity_tpu_torch.data.transforms import _normalize_rel_cords
 from gaussiancity_tpu_torch.ops import extrusion as ext
 from gaussiancity_tpu_torch.ops import visibility as vis
 from gaussiancity_tpu_torch.utils import helpers
+from gaussiancity_tpu_torch.testing import share_cpu_cores
 
 from test_extrusion_visibility import numpy_dda
+
+share_cpu_cores()
 
 
 def make_maps(seed=0, H=24, W=24):
