@@ -71,11 +71,13 @@ Phases, each of which fails the run if it fails:
 16. generate a dataset city on the card: the synthetic city's maps
     written as projection PNGs, 8 orbit poses, ``generate_city`` at the
     JAX default 640 x 640 x 256 volume (the footprint extrusion E1 once a
-    category a view, V1 once a view, the split of a view's time), view 0
+    category a city, before the views, V1 once a view, the split of the
+    views' time), view 0
     again on the CPU by the plain path (its maps, points and instance map
     bit-equal to the card's files), footage JPEGs and one
     ``GoogleEarthDataset`` item read back; E1 held against its plain
-    version and timed on view 0's maps, V1 on its volume;
+    version and timed on view 0's maps (the whole call, padded, each
+    pass apart, the host's time), V1 on its volume;
 17. run the command line (``python3 -m gaussiancity_tpu_torch``) as
     subprocesses on the card: train mode, 4 steps of the tiny REST widths
     on that city (a checkpoint, finite losses, overflow counters 0), then
@@ -160,13 +162,14 @@ Phases, each of which fails the run if it fails:
     water and 320 buildings, its metadata, an .esp project, a camera path
     and the capture's metadata, written here) through the port's
     ``process_city`` (``google_earth_projections`` at MAP_SIZE 2048, the
-    poses, 4 views at 640 x 640 x 256: E1 once a view, the view's stage
-    split); E1 held against its plain version on the 2048-pixel REST map
+    poses, 4 views at 640 x 640 x 256: E1 once a category a city, the
+    views' stage split); E1 held against its plain version on the 2048-pixel REST map
     (bit-equal, and on a repeat) and timed beside the host extruders
     (NumPy and g++, wall clock, the same rows), one ``GoogleEarthDataset``
     item read back; then a small KITTI-360 drive (3D-box XML, two
-    categories a view, 256 x 256 x 128) through ``process_city`` on the
-    card and on the CPU: Points pkls and instance images equal.
+    categories a view, 256 x 256 x 128, E1 once a category a view on
+    each view's frustum crop) through ``process_city`` on the card and on
+    the CPU: Points pkls and instance images equal.
 
 Two ranks on one card measure correctness and each rank's path (its
 kernels, its collectives staged through the host by gloo), not NVLink
@@ -191,7 +194,8 @@ per step and the A/B of phase 9; the uses of phases 21-23 under
 "bf16_frame"; the uses of phases 28-29 under "ddp_rest_step",
 "ddp_bldg_step", "sharded_raster" and "sharded_frame"; E1's on phase
 16's dataset view and phase 31's 2048-pixel map as "dataset_view" and
-"ge_2048", with the rows each emitted), and as its last
+"ge_2048", with the rows each emitted, the padded time, each pass's
+time and the host's time in a call), and as its last
 line
 ``{"ok": true, "device": {...}}``.
 
@@ -2192,28 +2196,43 @@ def view_targets():
             (vis, "points_to_volume"), (vis, "visible_from_volume")]
 
 
+CITY_EXTRUDE = "city extrude (E1, maps uploaded, once a city)"
+
+
 def log_view_stages(t: dict, wall: float, n: int, what: str) -> dict:
-    """Log the split of a generated view's time (``timed_calls`` of
-    ``view_targets``) and return each stage's median in ms."""
-    stages = {"extrude (E1, maps uploaded)": t["get_points_from_projections"],
-              "local projections (host)": t["get_local_projections"],
+    """Log the split of a Google Earth city's generated views
+    (``timed_calls`` of ``view_targets``): the city's extrusion, once
+    before its views, and each view's stages; return the extrusion's ms
+    and each view stage's median in ms."""
+    extrude = t["get_points_from_projections"]
+    check(len(extrude) == 1 and all(len(t[name]) == n for name in (
+        "generate_view", "get_local_projections", "points_to_volume",
+        "visible_from_volume")),
+        f"the city was extruded {len(extrude)} times for {n} views, or a "
+        "view stage did not run once a view")
+    stages = {"local projections (host)": t["get_local_projections"],
               "volume": t["points_to_volume"],
               "raycast (occupancy tables, V1, instance map)":
                   t["visible_from_volume"]}
     stages["reindex, masks, copy back"] = [
         g - sum(col) for g, col in zip(t["generate_view"],
                                        zip(*stages.values()))]
-    write = (wall - sum(t["generate_view"]) - t["load_projections"][0]
+    write = (wall - sum(t["generate_view"]) - extrude[0]
+             - t["load_projections"][0]
              - t["get_centers_from_projections"][0]) / n
     log(f"{what}: {n} views in {wall / 1e3:.2f} s ({wall / n:.1f} ms a "
         f"view); projections read {t['load_projections'][0]:.1f} ms, "
         f"centres {t['get_centers_from_projections'][0]:.1f} ms")
+    log(f"  {CITY_EXTRUDE}: {extrude[0]:.2f} ms ({extrude[0] / n:.2f} ms "
+        f"a view over {n} views)")
     for name, ms in stages.items():
-        log(f"  stage {name}: " + " ".join(f"{m:.2f}" for m in ms)
+        log(f"  view stage {name}: " + " ".join(f"{m:.2f}" for m in ms)
             + f"   median {float(np.median(ms)):.2f} ms")
-    log(f"  stage write (png + pkl, host): {write:.2f} ms a view (mean)")
+    log(f"  view stage write (png + pkl, host): {write:.2f} ms a view "
+        "(mean)")
     medians = {k: float(np.median(v)) for k, v in stages.items()}
     medians["write (host)"] = write
+    medians[CITY_EXTRUDE] = extrude[0]
     return medians
 
 
@@ -2229,14 +2248,17 @@ def device_maps(maps: dict, device) -> tuple:
 
 def e1_measure(use: str, maps: tuple, include_btm: bool) -> dict:
     """E1 against its plain version on one category's maps on the card
-    (rows bit-equal, and on a repeat); the time of the whole call (count,
-    scan, the host's read of the row count, emit) and of the padded form
-    that skips the read, the plain version's time, and the bound: the
+    (rows bit-equal, and on a repeat); the time of the whole call (pass
+    A, the host's wait for the row count, pass B) and of the padded form
+    that does not wait, each pass's device time apart (CUDA events over
+    many launches of it alone), the host's time in an exact and a padded
+    call on an idle card, the plain version's time, and the bound: the
     maps read once as the caller passes them (int16 INS, TD_HF and BU_HF
     and a bool PTS from the PNG maps) and the rows written once over the
     memory rate."""
     import torch
 
+    from gaussiancity_tpu_torch import _kernels
     from gaussiancity_tpu_torch.data import dataset_generator as dg
     from gaussiancity_tpu_torch.ops import extrusion as ext
 
@@ -2256,6 +2278,31 @@ def e1_measure(use: str, maps: tuple, include_btm: bool) -> dict:
     ms = cuda_time_ms(lambda: ext.extrude_points_exact(*args))
     padded_ms = cuda_time_ms(lambda: ext.extrude_rows(*args,
                                                       capacity=rows))
+    # the passes apart, launched as extrude_rows launches them
+    launch_args, keep = ext.e1_launch_args(*args)
+    stream = _kernels.stream_handle(maps[0].device)
+    out = torch.empty_like(got)
+    pass_ms = {
+        "pass_a_ms": cuda_time_ms(lambda: _kernels.launch(
+            "extrude", *launch_args, None, 0, stream), iters=100),
+        "pass_b_ms": cuda_time_ms(lambda: _kernels.launch(
+            "extrude", *launch_args, out.data_ptr(), rows, stream),
+            iters=100)}
+    torch.cuda.synchronize()
+    check(int(keep[-1][0]) == rows and torch.equal(out, got),
+          f"E1's passes launched alone differ from the call ({use})")
+    host_ms = {}
+    for name, call in (("exact_host_ms", lambda: ext.extrude_points_exact(
+            *args)), ("padded_host_ms", lambda: ext.extrude_rows(
+                *args, capacity=rows))):
+        spans = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            spans.append((time.perf_counter() - t0) * 1e3)
+        host_ms[name] = float(np.median(spans))
+    torch.cuda.synchronize()
     plain_ms = cuda_time_ms(lambda: ext.extrude_rows_plain(*args), iters=3,
                             warmup=1)
     H, W = maps[0].shape
@@ -2266,19 +2313,24 @@ def e1_measure(use: str, maps: tuple, include_btm: bool) -> dict:
         + ", ".join(str(m.dtype).removeprefix("torch.") for m in maps)
         + f"), {int(maps[3].sum())} masked pixels, "
         f"{rows} rows bit-equal to the plain version (and on a repeat); "
-        f"{ms:.4f} ms a call (count, scan, the row count read, emit), "
-        f"{padded_ms:.4f} ms padded (no read), plain {plain_ms:.2f} ms; "
-        f"bound {n_bytes} B -> {bound:.5f} ms")
+        f"{ms:.4f} ms a call (pass A, the wait for the row count, pass "
+        f"B), {padded_ms:.4f} ms padded (no wait); pass A "
+        f"{pass_ms['pass_a_ms']:.4f} ms, pass B {pass_ms['pass_b_ms']:.4f}"
+        f" ms on the device; host {host_ms['exact_host_ms']:.4f} ms in an "
+        f"exact call, {host_ms['padded_host_ms']:.4f} in a padded one; "
+        f"plain {plain_ms:.2f} ms; bound {n_bytes} B -> {bound:.5f} ms "
+        f"({bound / ms:.1%} of it reached)")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
-            "padded_ms": padded_ms, "rows": rows, "pixels": H * W}
+            "padded_ms": padded_ms, **pass_ms, **host_ms, "rows": rows,
+            "pixels": H * W}
 
 
 def phase_dataset_generation(projections, device="cuda",
                              vol_shape=DATASET_VOL) -> Tuple[str, dict, dict]:
     """``generate_city`` on the card over the synthetic city's maps (as
     PNGs) from 8 orbit poses at the JAX default volume: E1 once a category
-    a view and V1 once a view, the split of a view's time, view 0
+    a city and V1 once a view, the split of a view's time, view 0
     bit-equal to the CPU's plain path, the files read back by
     ``GoogleEarthDataset``; E1 held and timed on view 0's maps, V1 on its
     volume.  Returns (the city directory, V1's and E1's ``dataset_view``
@@ -2303,6 +2355,16 @@ def phase_dataset_generation(projections, device="cuda",
                                    radius=220 * P // 512,
                                    altitude=260 * P // 512)
     dg.save_camera_poses(os.path.join(city, "CameraPoses.csv"), poses)
+    # the city is extruded once, so its stage is one sample: time the
+    # process's first extrusion of the PNG maps apart, as set-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dg.get_points_from_projections(
+        "GOOGLE_EARTH", dg.load_projections(os.path.join(city, "Projection")),
+        device=device)
+    torch.cuda.synchronize()
+    log(f"first extrusion of the PNG maps in this process (set-up, untimed "
+        f"below): {(time.perf_counter() - t0) * 1e3:.2f} ms")
     targets = view_targets()
     vis.raycast.launches = 0
     ext.extrude_rows.launches = 0
@@ -2317,11 +2379,9 @@ def phase_dataset_generation(projections, device="cuda",
     n = DATASET_VIEWS
     check(launches == n, f"generate_city launched V1 {launches} times for "
           f"{n} views")
-    check(e1_launches == n * len(projections),
-          f"generate_city launched E1 {e1_launches} times for {n} views of "
-          f"{len(projections)} categories")
-    check(all(len(t[name]) == n for _, name in targets[2:]),
-          "generate_city did not run every stage once a view")
+    check(e1_launches == len(projections),
+          f"generate_city launched E1 {e1_launches} times for a city of "
+          f"{len(projections)} categories ({n} views)")
     stages = log_view_stages(t, wall, n, "dataset generation (960x540 over "
                              f"a {vol_shape} volume)")
     log(f"  launches: V1 {launches}, E1 {e1_launches}")
@@ -2380,7 +2440,7 @@ def phase_dataset_generation(projections, device="cuda",
     maps = device_maps(projections_png["REST"], device)
     e1_use = e1_measure("dataset view", maps, include_btm=False)
     e1_use["launches"] = e1_launches
-    e1_use["stage_ms"] = stages["extrude (E1, maps uploaded)"]
+    e1_use["stage_ms"] = stages[CITY_EXTRUDE]
     pts = dg.get_points_from_projections("GOOGLE_EARTH", projections_png,
                                          device=device)
     offsets = pts[:, :3].min(0).values - torch.tensor(
@@ -2577,7 +2637,8 @@ def phase_raw_capture(e1: dict, device="cuda") -> None:
     """From raw capture to training city on the card: the port's
     ``process_city`` over a synthetic Google Earth capture at the real
     width (``google_earth_projections`` at MAP_SIZE 2048, the poses, 4
-    views at 640 x 640 x 256; E1 once a view, the split of a view's time),
+    views at 640 x 640 x 256; E1 once a category a city, the split of
+    the views' time),
     E1 held against its plain version on the 2048-pixel REST map (and on a
     repeat) and timed beside the host extruders (NumPy and g++, wall
     clock), one ``GoogleEarthDataset`` item read back; then a small
@@ -2613,9 +2674,12 @@ def phase_raw_capture(e1: dict, device="cuda") -> None:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     launches = ext.extrude_rows.launches
-    check(launches == GE_VIEWS and vis.raycast.launches == GE_VIEWS,
-          f"process_city launched E1 {launches} and V1 "
-          f"{vis.raycast.launches} times for {GE_VIEWS} views")
+    projections = dg.load_projections(os.path.join(cap, "Projection"))
+    check(launches == len(projections)
+          and vis.raycast.launches == GE_VIEWS,
+          f"process_city launched E1 {launches} times for a city of "
+          f"{len(projections)} categories and V1 {vis.raycast.launches} "
+          f"times for {GE_VIEWS} views")
     ingest = (t["get_projections"][0] + t["recover_camera_parameters"][0]
               + t["dump_projections"][0])
     log(f"process_city (Google Earth, MAP_SIZE 2048): {wall / 1e3:.2f} s; "
@@ -2626,14 +2690,14 @@ def phase_raw_capture(e1: dict, device="cuda") -> None:
                              f"Google Earth views (960x540 over a "
                              f"{DATASET_VOL} volume)")
 
-    maps_np = dg.load_projections(os.path.join(cap, "Projection"))["REST"]
+    maps_np = projections["REST"]
     check(maps_np["INS"].shape == (2048, 2048) and set(maps_np) == {
         "INS", "SEG", "TD_HF", "BU_HF", "PTS"},
         "google_earth_projections did not make the 2048-pixel maps")
     maps = device_maps(maps_np, device)
     use = e1_measure("Google Earth 2048", maps, include_btm=False)
     use["launches"] = launches
-    use["stage_ms"] = stages["extrude (E1, maps uploaded)"]
+    use["stage_ms"] = stages[CITY_EXTRUDE]
     e1.setdefault("uses", {})["ge_2048"] = use
     card_rows = ext.extrude_points_exact(
         *maps, dg.get_seg_ins_relations("GOOGLE_EARTH"),
@@ -4244,6 +4308,8 @@ def run_phases(profiling: bool, t_start: float) -> int:
     e1 = {"name": "extrude", "route": "cuda",
           "source": "gaussiancity_tpu_torch/csrc/extrude.cu",
           "replaces": "gaussiancity_tpu/ops/extrusion.py:83",
+          "status": "redesigned: two passes over pixel tiles, no per-call "
+                    "upload, rows stored 16 bytes at a time",
           **{k: e1_view[k] for k in (
               "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
               "bound_by", "library_ms")},

@@ -59,11 +59,12 @@ _ARGTYPES = {
     "hash_encode_bwd": [P, P, P, P, I, I, I, I, I, F, F, P, P, P, P, P],
     # table, idx, R, M, out, stream
     "gather_rowsum": [P, P, I, LL, P, P],
-    # ins, td, bu, pts, map_bytes, h, w, scales, n_scales, bldg_min,
-    # car_min, facade_sem, car_sem, roof_offset, include_btm, z_cap,
-    # counts, incl (null: count pass), out (null: count pass), cap, stream
-    "extrude": [P, P, P, P, I, I, I, P, I, I, I, I, I, I, I, I, P, P, P,
-                LL, P],
+    # ins, td, bu, pts, map_bytes, h, w, scales (a host array, passed to
+    # the kernels by value), n_scales, bldg_min, car_min, facade_sem,
+    # car_sem, roof_offset, include_btm, z_cap, sums, n_sums, out (null:
+    # pass A), cap, stream
+    "extrude": [P, P, P, P, I, I, I, ctypes.POINTER(I), I, I, I, I, I, I,
+                I, I, P, LL, P, LL, P],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

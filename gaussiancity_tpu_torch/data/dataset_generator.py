@@ -316,11 +316,15 @@ def get_seg_map_from_ins_map(dataset: str, ins_map: np.ndarray) -> np.ndarray:
 
 def generate_view(dataset: str, projections, cam_pos, cam_quat,
                   vol_shape=(640, 640, 256),
-                  seg_map: Optional[np.ndarray] = None, device=None):
+                  seg_map: Optional[np.ndarray] = None, device=None,
+                  points: Optional[torch.Tensor] = None):
     """One view on ``device`` (the card unless the caller asks for the
     CPU): extrusion (kernel E1), the id volume, its raycast (kernel V1)
     and the visible points reindexed, copied back only as the Points pkl
-    holds them (upstream dataset_generator.py:1545-1686).
+    holds them (upstream dataset_generator.py:1545-1686).  ``points``,
+    where given, are the city's extruded points on ``device``
+    (``get_points_from_projections`` without a frustum, which a Google
+    Earth view extrudes); the view only reads them.
 
     Returns ({prj, vpm, msk, pts}, the Points pkl's schema; the instance
     map [H, W])."""
@@ -336,8 +340,9 @@ def generate_view(dataset: str, projections, cam_pos, cam_quat,
 
     local = get_local_projections(
         projections["REST"], frustum, c["PROJECTION_SIZE"])
-    points = get_points_from_projections(dataset, projections, frustum,
-                                         device)
+    if points is None:
+        points = get_points_from_projections(dataset, projections, frustum,
+                                             device)
 
     mins = points[:, :3].min(0).values
     K = camera_intrinsics(dataset)
@@ -414,7 +419,9 @@ def generate_city(dataset: str, city_dir: str,
     """One city directory: ``Projection/*.png`` (and ``CameraPoses.csv``
     unless ``cam_poses`` is given) -> ``CENTERS.pkl``, ``InstanceImage/``
     and ``Points/``, the views raycast on ``device`` (the card unless the
-    caller asks for the CPU)."""
+    caller asks for the CPU).  A Google Earth view has no frustum, so the
+    city is extruded once for all its views; a KITTI-360 view extrudes
+    its own frustum crop."""
     from PIL import Image
 
     device = resolve_device(device)
@@ -432,11 +439,15 @@ def generate_city(dataset: str, city_dir: str,
     os.makedirs(ins_dir, exist_ok=True)
     os.makedirs(pts_dir, exist_ok=True)
     pattern = CONSTANTS[dataset]["OUT_FILE_NAME_PATTERN"]
+    points = (None if dataset == "KITTI_360"
+              else get_points_from_projections(dataset, projections, None,
+                                               device))
     for r in cam_poses:
         cam_pos = np.array([float(r[k]) for k in ("tx", "ty", "tz")])
         cam_quat = np.array([float(r[k]) for k in ("qx", "qy", "qz", "qw")])
         data, ins_map = generate_view(dataset, projections, cam_pos,
-                                      cam_quat, vol_shape, device=device)
+                                      cam_quat, vol_shape, device=device,
+                                      points=points)
         name = pattern % int(float(r["id"]))
         Image.fromarray(ins_map.astype(np.uint16)).save(
             os.path.join(ins_dir, f"{name}.png"))

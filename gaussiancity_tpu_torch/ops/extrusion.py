@@ -26,13 +26,15 @@ The forms:
 - ``extrude_points_np``: the NumPy mirror (host).
 
 Both tensor forms go through ``extrude_rows``, which launches kernel E1
-(``csrc/extrude.cu``: count, scan, emit) on CUDA tensors and runs
-``extrude_rows_plain`` (the NumPy mirror's vectorised walk in torch, in
-blocks of columns) on CPU tensors.
+(``csrc/extrude.cu``: a count pass and an emit pass over tiles of
+pixels) on CUDA tensors and runs ``extrude_rows_plain`` (the NumPy
+mirror's vectorised walk in torch, in blocks of columns) on CPU tensors.
+``extrude_rows_by_rank`` repeats E1's indexing in torch for the tests.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -41,6 +43,10 @@ import torch
 from gaussiancity_tpu_torch import _kernels
 
 BLOCK_VOXELS = 1 << 21  # (pixel, z) rows extruded at once
+# kernel E1's tiling (csrc/extrude.cu: TILE, GROUP, MAX_SCALES)
+E1_TILE = 1024  # pixels a block
+E1_GROUP = 64  # tiles a group total
+E1_MAX_SCALES = 16  # class scale table entries, passed by value
 
 
 class SegInsRelation(NamedTuple):
@@ -196,6 +202,87 @@ def extrude_rows_plain(ins_map: torch.Tensor, td_hf: torch.Tensor,
     return rows, total
 
 
+def extrude_rows_by_rank(ins_map: torch.Tensor, td_hf: torch.Tensor,
+                         bu_hf: torch.Tensor, pts_map: torch.Tensor,
+                         rel: SegInsRelation, class_scales: Sequence[int],
+                         include_btm_pts: bool = True,
+                         z_cap: Optional[int] = None,
+                         capacity: Optional[int] = None,
+                         tile: int = E1_TILE, group: int = E1_GROUP
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """E1's indexing in torch, for the tests: what ``extrude_rows_plain``
+    returns, built as the kernel builds it.  Each column's rows are one
+    run (count, first z, z step, the top's z) in closed form; the tiles
+    of ``tile`` row-major pixels start at the sum of the totals of the
+    groups (``group`` tiles) before theirs and of the tiles before them
+    in their group; a tile's row of rank r takes the last pixel whose
+    first row is at or before r and z = first z + its rank in the column
+    times the step."""
+    H, W = ins_map.shape
+    dev = ins_map.device
+    ins, td, bu = ins_map.int(), td_hf.int(), bu_hf.int()
+    sem, s = _pixel_scales(ins, rel, class_scales)
+    border = _border_columns(ins, td, s, class_scales)
+    n = (torch.div(td - bu, s, rounding_mode="floor") + 1).clamp(min=0)
+    klast = bu + (n - 1) * s
+
+    def under_cap(k):
+        return (torch.ones_like(k, dtype=torch.bool) if z_cap is None
+                else (k >= 0) & (k < z_cap))
+
+    if z_cap is None:
+        q_lo, q_hi = torch.zeros_like(n), n
+    else:
+        q_lo = torch.where(bu < 0, torch.div(-bu + s - 1, s,
+                                             rounding_mode="floor"), 0)
+        q_hi = torch.where(bu >= z_cap, 0, torch.minimum(
+            n, torch.div(z_cap - bu + s - 1, s, rounding_mode="floor")))
+    with_btm = (n > 1) & under_cap(bu) & include_btm_pts
+    cnt = torch.where(border, (q_hi - q_lo).clamp(min=0),
+                      with_btm.int() + under_cap(klast).int())
+    cnt = torch.where(pts_map.bool() & (n > 0), cnt, 0).flatten().long()
+    k0 = torch.where(border, bu + q_lo * s,
+                     torch.where(with_btm, bu, klast)).flatten()
+    dk = torch.where(border, s, klast - bu).flatten()
+    n_tiles = -(-H * W // tile)
+    n_groups = -(-n_tiles // group)
+    counts = torch.nn.functional.pad(cnt, (0, n_tiles * tile - H * W))
+    counts = counts.view(n_tiles, tile)
+    tile_total = counts.sum(1)
+    by_group = torch.nn.functional.pad(
+        tile_total, (0, n_groups * group - n_tiles)).view(n_groups, group)
+    group_total = by_group.sum(1)
+    total = int(group_total.sum())
+    tile_first = ((torch.cumsum(group_total, 0) - group_total)
+                  .repeat_interleave(group)
+                  + (torch.cumsum(by_group, 1) - by_group).flatten()
+                  )[:n_tiles]
+    first_row = torch.cumsum(counts, 1) - counts  # in-tile exclusive scan
+    end = total if capacity is None else min(total, capacity)
+    blocks = []
+    for t in range(n_tiles):
+        lo = int(tile_first[t])
+        hi = min(lo + int(tile_total[t]), end)
+        if lo >= hi:
+            continue
+        rank = torch.arange(hi - lo, device=dev)
+        p = torch.searchsorted(first_row[t], rank, right=True) - 1
+        g = t * tile + p
+        k = k0[g] + (rank - first_row[t][p]).int() * dk[g]
+        i, j = g // W, g % W
+        top = k == klast.flatten()[g]
+        roof = top & (sem.flatten()[g] == rel.bldg_facade_semantic_id)
+        out_id = ins.flatten()[g] + torch.where(roof, rel.roof_ins_offset, 0)
+        blocks.append(torch.stack([j.int(), i.int(), k.int(),
+                                   s.flatten()[g], out_id.int()], 1))
+    rows = (torch.cat(blocks) if blocks
+            else torch.zeros((0, 5), dtype=torch.int32, device=dev))
+    if capacity is not None:
+        rows = torch.cat([rows, torch.zeros((capacity - len(rows), 5),
+                                            dtype=torch.int32, device=dev)])
+    return rows, torch.tensor(total, dtype=torch.int64, device=dev)
+
+
 def _check_maps(maps) -> None:
     shape, dev = maps[0].shape, maps[0].device
     if len(shape) != 2:
@@ -206,6 +293,45 @@ def _check_maps(maps) -> None:
                              "and device")
 
 
+def e1_launch_args(ins_map: torch.Tensor, td_hf: torch.Tensor,
+                   bu_hf: torch.Tensor, pts_map: torch.Tensor,
+                   rel: SegInsRelation, class_scales: Sequence[int],
+                   include_btm_pts: bool = True, z_cap: Optional[int] = None
+                   ) -> Tuple[tuple, tuple]:
+    """E1's launcher arguments for CUDA maps up to the output pointer
+    (``_kernels.launch("extrude", *args, out, cap, stream)``: pass A with
+    a null ``out``, pass B with the rows), and the tensors they point
+    into, to keep alive until both are queued; the last is the sums
+    (``sums[0]`` the row count after pass A).  INS, TD_HF and BU_HF go as
+    int16 when all three are (the PNG maps), else as int32, and a bool or
+    uint8 PTS as it is; other types are converted first.  The scale table
+    goes by value in the kernels' parameters."""
+    if not 1 <= len(class_scales) <= E1_MAX_SCALES:
+        raise ValueError(f"E1 takes 1-{E1_MAX_SCALES} class scales, got "
+                         f"{len(class_scales)}")
+    if min(class_scales) < 1:
+        raise ValueError("class scales must be >= 1")
+    maps = (ins_map, td_hf, bu_hf, pts_map)
+    map_type = (torch.int16 if all(m.dtype == torch.int16 for m in maps[:3])
+                else torch.int32)
+    ins, td, bu = (m.to(map_type).contiguous() for m in maps[:3])
+    pts = (pts_map if pts_map.dtype in (torch.bool, torch.uint8)
+           else pts_map != 0).contiguous()
+    H, W = ins.shape
+    n_tiles = -(-H * W // E1_TILE)
+    sums = torch.empty((1 + -(-n_tiles // E1_GROUP) + n_tiles,),
+                       dtype=torch.int64, device=ins.device)
+    scales = (ctypes.c_int * len(class_scales))(*class_scales)
+    args = (ins.data_ptr(), td.data_ptr(), bu.data_ptr(), pts.data_ptr(),
+            ins.element_size(), H, W, scales, len(class_scales),
+            rel.bldg_ins_min_id, rel.car_ins_min_id,
+            rel.bldg_facade_semantic_id, rel.car_semantic_id,
+            rel.roof_ins_offset, int(include_btm_pts),
+            -1 if z_cap is None else int(z_cap), sums.data_ptr(),
+            sums.numel())
+    return args, (ins, td, bu, pts, scales, sums)
+
+
 def extrude_rows(ins_map: torch.Tensor, td_hf: torch.Tensor,
                  bu_hf: torch.Tensor, pts_map: torch.Tensor,
                  rel: SegInsRelation, class_scales: Sequence[int],
@@ -213,51 +339,42 @@ def extrude_rows(ins_map: torch.Tensor, td_hf: torch.Tensor,
                  capacity: Optional[int] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The extruded voxels as ``extrude_rows_plain`` returns them.  CUDA
-    maps go to kernel E1 (``csrc/extrude.cu``): a count pass, one thread
-    a pixel; ``torch.cumsum`` of the counts in row-major order; an emit
-    pass that writes each column's rows at its offset.  E1 reads INS,
-    TD_HF and BU_HF as int16 when all three are (the PNG maps), else as
-    int32, and a bool or uint8 PTS as it is; other types are converted
-    first.  Without ``capacity`` the output is sized by the count (one
-    host sync a call); with it there is none.  ``extrude_rows.launches``
-    counts one a call that launches E1.  CPU maps go to the plain
-    version."""
+    maps go to kernel E1 (``csrc/extrude.cu``, arguments from
+    ``e1_launch_args``): pass A counts the rows of each tile of pixels and
+    their total, pass B writes each tile's rows from its first one.
+    Without ``capacity`` the output is sized by the total, read into
+    pinned memory with one wait on the host; with it nothing waits (pass
+    B writes the zero padding too).  ``extrude_rows.launches`` counts one
+    a call that launches E1.  CPU maps go to the plain version."""
     maps = (ins_map, td_hf, bu_hf, pts_map)
     _check_maps(maps)
     if not ins_map.is_cuda:
         return extrude_rows_plain(*maps, rel, class_scales, include_btm_pts,
                                   z_cap, capacity)
-    H, W = ins_map.shape
-    dev = ins_map.device
-    map_type = (torch.int16 if all(m.dtype == torch.int16 for m in maps[:3])
-                else torch.int32)
-    ins, td, bu = (m.to(map_type).contiguous() for m in maps[:3])
-    pts = (pts_map if pts_map.dtype in (torch.bool, torch.uint8)
-           else pts_map != 0).contiguous()
-    table = torch.as_tensor(class_scales, dtype=torch.int32, device=dev)
     if capacity is not None and capacity < 0:
         raise ValueError("capacity must be >= 0")
-    counts = torch.empty((H, W), dtype=torch.int32, device=dev)
-    args = (ins.data_ptr(), td.data_ptr(), bu.data_ptr(), pts.data_ptr(),
-            ins.element_size(), H, W, table.data_ptr(), len(class_scales),
-            rel.bldg_ins_min_id, rel.car_ins_min_id,
-            rel.bldg_facade_semantic_id, rel.car_semantic_id,
-            rel.roof_ins_offset, int(include_btm_pts),
-            -1 if z_cap is None else int(z_cap), counts.data_ptr())
+    dev = ins_map.device
+    args, keep = e1_launch_args(*maps, rel, class_scales, include_btm_pts,
+                                z_cap)
+    total = keep[-1][0]
+    if ins_map.numel() == 0:
+        total.zero_()
+        return torch.zeros((capacity or 0, 5), dtype=torch.int32,
+                           device=dev), total
     stream = _kernels.stream_handle(dev)
-    if H * W == 0:
-        incl = torch.zeros((1,), dtype=torch.int64, device=dev)
-    else:
-        _kernels.launch("extrude", *args, None, None, 0, stream)
-        extrude_rows.launches += 1
-        incl = torch.cumsum(counts.view(-1), 0, dtype=torch.int64)
-    total = incl[-1]
-    n_out = int(total) if capacity is None else capacity
-    out = (torch.zeros if capacity is not None else torch.empty)(
-        (n_out, 5), dtype=torch.int32, device=dev)
-    if n_out and H * W:
-        _kernels.launch("extrude", *args, incl.data_ptr(), out.data_ptr(),
-                        n_out, stream)
+    _kernels.launch("extrude", *args, None, 0, stream)
+    extrude_rows.launches += 1
+    n_out = capacity
+    if n_out is None:
+        host = torch.empty((), dtype=torch.int64, pin_memory=True)
+        host.copy_(total, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(dev))
+        done.synchronize()
+        n_out = int(host)
+    out = torch.empty((n_out, 5), dtype=torch.int32, device=dev)
+    if n_out:
+        _kernels.launch("extrude", *args, out.data_ptr(), n_out, stream)
     return out, total
 
 

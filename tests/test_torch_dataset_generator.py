@@ -149,12 +149,15 @@ def record_calls(mp, target, name, store):
 @pytest.fixture(scope="module")
 def cities(tmp_path_factory):
     """The synthetic city generated by each package into its own root:
-    (JAX root, port root, JAX views, port views), a view being (the
-    Points pkl dict, the instance map)."""
+    (JAX root, port root, JAX views, port views, the port's extrusions),
+    a view being (the Points pkl dict, the instance map) and the
+    extrusions the point sets ``get_points_from_projections`` returned
+    while the port generated its city."""
     from PIL import Image
 
     roots = {k: str(tmp_path_factory.mktemp(k)) for k in ("jax", "port")}
     views = {"jax": [], "port": []}
+    extruded = []
     rng = np.random.default_rng(0)
     footage = [rng.integers(0, 255, (540, 960, 3), np.uint8)
                for _ in range(N_VIEWS)]
@@ -165,6 +168,7 @@ def cities(tmp_path_factory):
         mp.setattr(jvis, "visible_from_volume", exact_visible_from_volume)
         record_calls(mp, jdg, "generate_view", views["jax"])
         record_calls(mp, dg, "generate_view", views["port"])
+        record_calls(mp, dg, "get_points_from_projections", extruded)
         for key, mod in (("jax", jdg), ("port", dg)):
             city = os.path.join(roots[key], "TestCity")
             os.makedirs(os.path.join(city, "footage"))
@@ -182,7 +186,7 @@ def cities(tmp_path_factory):
             for i, img in enumerate(footage):
                 Image.fromarray(img).save(
                     os.path.join(city, "footage", f"TestCity_{i:02d}.jpeg"))
-    return roots["jax"], roots["port"], views["jax"], views["port"]
+    return roots["jax"], roots["port"], views["jax"], views["port"], extruded
 
 
 def _kitti_projections(P=64, seed=3):
@@ -308,7 +312,7 @@ class TestGenerateCity:
     @pytest.mark.parametrize("view", range(N_VIEWS))
     def test_generate_view_matches_jax(self, cities, view):
         """prj, vpm, msk, pts and the instance map of one view."""
-        _, _, jviews, tviews = cities
+        _, _, jviews, tviews, _ = cities
         assert len(jviews) == len(tviews) == N_VIEWS
         (want, want_ins), (got, got_ins) = jviews[view], tviews[view]
         assert got.keys() == want.keys() == {"prj", "vpm", "msk", "pts"}
@@ -318,7 +322,7 @@ class TestGenerateCity:
         assert got["vpm"].max() == len(got["pts"]) - 1
 
     def test_generate_city_files_match_jax(self, cities):
-        jroot, troot, _, _ = cities
+        jroot, troot, _, _, _ = cities
         jcity, tcity = (os.path.join(r, "TestCity") for r in (jroot, troot))
         with open(os.path.join(jcity, "CENTERS.pkl"), "rb") as f:
             want = pickle.load(f)
@@ -344,10 +348,37 @@ class TestGenerateCity:
                     with open(jpath, "rb") as f, open(tpath, "rb") as g:
                         assert f.read() == g.read(), tpath
 
+    def test_city_extruded_once_matches_per_view_path(self, cities):
+        """A Google Earth city is extruded once for all its views; each
+        view generated alone (extruding the maps itself) writes the same
+        Points pkl and instance image."""
+        from PIL import Image
+
+        _, troot, _, _, extruded = cities
+        assert len(extruded) == 1
+        city = os.path.join(troot, "TestCity")
+        projections = dg.load_projections(os.path.join(city, "Projection"))
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setitem(dg.CONSTANTS["GOOGLE_EARTH"], "PROJECTION_SIZE",
+                       WINDOW)
+            for i, p in enumerate(_poses()):
+                data, ins_map = dg.generate_view(
+                    "GOOGLE_EARTH", projections,
+                    np.array([p["tx"], p["ty"], p["tz"]]),
+                    np.array([p["qx"], p["qy"], p["qz"], p["qw"]]), VOL,
+                    device="cpu")
+                with open(os.path.join(city, "Points", f"{i:04d}.pkl"),
+                          "rb") as f:
+                    _assert_same(data, pickle.load(f), f"view {i}")
+                with Image.open(os.path.join(city, "InstanceImage",
+                                             f"{i:04d}.png")) as img:
+                    _assert_same(ins_map.astype(np.uint16), np.array(img),
+                                 f"view {i} instance map")
+
     def test_dataset_items_match_jax(self, cities):
         """The port's GoogleEarthDataset on the port's city against the JAX
         dataset on the JAX city: the val split, item by item."""
-        jroot, troot, _, _ = cities
+        jroot, troot, _, _, _ = cities
         kw = dict(name="GOOGLE_EARTH", n_cities=1, n_views=N_VIEWS,
                   train_crop_size=(192, 96), test_crop_size=(192, 96),
                   train_min_pixels=1, proj_size=WINDOW, map_size=0, scale=1,

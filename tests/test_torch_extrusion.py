@@ -143,3 +143,40 @@ def test_native_matches_numpy_mirror(include_btm):
             got = extrude_points_native(*maps, REL, TABLE, include_btm,
                                         n_threads=n_threads)
             np.testing.assert_array_equal(got, want)
+
+
+def _sunken_maps(seed):
+    """``_maps`` with a third of the blocks lowered below z = 0 (BU and
+    TD down by 6-20), so that a z cap cuts columns at both ends."""
+    ins, td, bu, pts = _maps(seed)
+    rng = np.random.default_rng(seed + 100)
+    drop = np.where(rng.random(ins.shape) < 0.35, 0, 1)
+    for cls in np.unique(ins)[::3]:
+        shift = int(rng.integers(6, 21))
+        td = np.where(ins == cls, td - shift, td)
+        bu = np.where(ins == cls, bu - shift, bu)
+    return ins, td, bu, pts * drop > 0
+
+
+@pytest.mark.parametrize("maps", ["make_maps", "blocks", "sunken"])
+@pytest.mark.parametrize("include_btm", [True, False])
+@pytest.mark.parametrize("z_cap,capacity", [(None, None), (12, None),
+                                            (24, 600), (24, 1 << 14)])
+@pytest.mark.parametrize("tile,group", [(ext.E1_TILE, ext.E1_GROUP),
+                                        (7, 3), (64, 2)])
+def test_rank_indexing_matches_plain(maps, include_btm, z_cap, capacity,
+                                     tile, group):
+    """E1's indexing (``extrude_rows_by_rank``: each column's rows in
+    closed form, the tiles' first rows from the group and tile totals,
+    each row's pixel and z from its rank) equals E1's plain version,
+    order, padding and total included; tiles of 7 and 64 pixels put many
+    tile and group edges inside these small maps."""
+    arrays = _sunken_maps(4) if maps == "sunken" else _case(maps, 0)
+    if maps == "sunken" and z_cap is not None:
+        assert (arrays[2] < 0).any() and (arrays[1] >= z_cap).any()
+    args = (*_t(arrays), REL, TABLE, include_btm, z_cap, capacity)
+    want, n = ext.extrude_rows_plain(*args)
+    got, total = ext.extrude_rows_by_rank(*args, tile=tile, group=group)
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    assert int(total) == int(n)
+    assert torch.equal(got, want)

@@ -91,7 +91,17 @@ def test_kitti_360_end_to_end_on_the_cpu(tmp_path, monkeypatch):
     """The drive's two views at a quarter of the KITTI-360 sensor (352 x
     94 rays, the intrinsics scaled alike), so that the plain raycast of
     the CPU path stays within this file's time budget; the full sensor
-    runs through the same code on the card in ``chip_smoke.py``."""
+    runs through the same code on the card in ``chip_smoke.py``.  Each
+    view extrudes its own frustum crop: ``get_points_from_projections``
+    runs once a view."""
+    extrude = dg.get_points_from_projections
+    crops = []
+
+    def counted(*args, **kwargs):
+        crops.append(args[2] if len(args) > 2 else kwargs["local_cords"])
+        return extrude(*args, **kwargs)
+
+    monkeypatch.setattr(dg, "get_points_from_projections", counted)
     monkeypatch.setitem(dg._SENSORS, "KITTI_360", (352, 94))
     monkeypatch.setitem(dg._DEFAULT_K, "KITTI_360",
                         dg._DEFAULT_K["KITTI_360"] * [[0.25], [0.25], [1]])
@@ -104,6 +114,8 @@ def test_kitti_360_end_to_end_on_the_cpu(tmp_path, monkeypatch):
         assert len(fp.read().splitlines()) == 3  # header + 2 kept frames
     pkls = sorted(os.listdir(os.path.join(city_dir, "Points")))
     assert pkls == ["0000000000.pkl", "0000000010.pkl"]
+    assert len(crops) == len(pkls)
+    assert all(c is not None for c in crops)
     for name in pkls:
         with open(os.path.join(city_dir, "Points", name), "rb") as fp:
             view = pickle.load(fp)

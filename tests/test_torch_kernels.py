@@ -878,3 +878,172 @@ def test_extrude_kernel_z_cap_and_capacity(dev, d_max, n_max):
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
     assert (int(want[2]) > 0) == (n_max < 1 << 16)
+
+
+def _tall_maps(H, W, seed=7):
+    """``_extrusion_maps`` with two towers of border columns at least
+    1,000 voxels tall: a facade block (scale 1, TD 1,200-1,500) and a
+    class-5 block (scale 4, TD 4,000-4,400), each a few pixels wide, so
+    their columns are border (an 8-neighbour differs in TD) and each
+    tile that holds them emits far more rows than one staged chunk."""
+    ins, td, bu, pts = _extrusion_maps(seed, H, W)
+    rng = np.random.default_rng(seed)
+    for cls, lo, hi in ((100, 1200, 1500), (5, 4000, 4400)):
+        y, x = rng.integers(4, H - 8), rng.integers(4, W - 8)
+        ins[y:y + 3, x:x + 3] = cls
+        td[y:y + 3, x:x + 3] = rng.integers(lo, hi, (3, 3))
+        bu[y:y + 3, x:x + 3] = 0
+        pts[y:y + 3, x:x + 3] = True
+    return ins, td, bu, pts
+
+
+def _straddling_maps():
+    """A 64 x 80 map (5,120 pixels: not a multiple of E1's 1,024-pixel
+    tile) whose tall border columns sit on both sides of each tile edge
+    (pixels 1,023 and 1,024, 2,047 and 2,048, ...), so that long runs of
+    rows end one tile's segment and start the next; a band of rows with
+    no masked pixel leaves a whole tile empty."""
+    from gaussiancity_tpu_torch.ops import extrusion as ext
+
+    H, W = 64, 80
+    ins, td, bu, pts = _extrusion_maps(8, H, W)
+    for edge in range(ext.E1_TILE, H * W, ext.E1_TILE):
+        for g, h in ((edge - 1, 1100 + edge % 7), (edge, 1300 + edge % 5)):
+            ins.flat[g] = 100
+            td.flat[g] = h
+            bu.flat[g] = 0
+            pts.flat[g] = True
+    pts[26:52] = False  # pixels 2,080-4,159: tile 3 holds no row
+    return ins, td, bu, pts
+
+
+E1_CASES = {
+    "tall_border_columns": lambda: _tall_maps(72, 90),
+    "tile_edges_and_empty_tiles": _straddling_maps,
+    "not_a_tile_multiple": lambda: _extrusion_maps(9, 37, 61),
+    "all_empty_tiles": lambda: tuple(
+        a if k < 3 else np.zeros_like(a, bool)
+        for k, a in enumerate(_extrusion_maps(10, 40, 70))),
+}
+
+
+@pytest.mark.parametrize("case", sorted(E1_CASES))
+@pytest.mark.parametrize("include_btm", [True, False])
+def test_extrude_kernel_tiles_and_tall_columns(dev, case, include_btm):
+    """E1's tiling: border columns of more than 1,000 voxels at scales 1
+    and 4, runs that end and start at tile edges, a pixel count that is
+    no multiple of the tile, empty tiles, a map with no masked pixel:
+    the rows bit-equal to the plain version's and on a repeat."""
+    from gaussiancity_tpu_torch.ops import extrusion as ext
+
+    maps = [torch.as_tensor(a, device=dev) for a in E1_CASES[case]()]
+    args = (*maps, ext.SegInsRelation(), ext.GOOGLE_EARTH_CLASS_SCALES,
+            include_btm)
+    got = ext.extrude_points_exact(*args)
+    again = ext.extrude_points_exact(*args)
+    want, n = ext.extrude_rows_plain(*args)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and int(n) == len(want)
+    assert torch.equal(got, want) and torch.equal(got, again)
+    if case == "tall_border_columns":
+        z = want[:, 2].long()
+        for s in (1, 4):
+            runs = want[(want[:, 3] == s) & (z >= 1000)]
+            assert len(runs) > 0, s
+
+
+def _ge_map(P, seed=0):
+    """A synthetic Google Earth map of P x P pixels: roads, blocks of
+    buildings with facade ids and heights up to 60, other classes, a
+    random PTS; int16 as the PNG maps load."""
+    rng = np.random.default_rng(seed)
+    ins = np.ones((P, P), np.int16)
+    td = np.ones((P, P), np.int16)
+    bu = np.zeros((P, P), np.int16)
+    for k in range(P * P // 1500):
+        y, x = rng.integers(0, P - 40, 2)
+        h, w = rng.integers(10, 40, 2)
+        ins[y:y + h, x:x + w] = 100 + 2 * k if k % 5 else (3, 5, 6)[k % 3]
+        td[y:y + h, x:x + w] = rng.integers(3, 60)
+        bu[y:y + h, x:x + w] = rng.integers(0, 3)
+    pts = rng.random((P, P)) > 0.3
+    return ins, td, bu, pts
+
+
+def test_extrude_kernel_2048_map(dev):
+    """A 2048 x 2048 synthetic map, exact and padded, with and without
+    its bottom rings: bit-equal to the plain version's, and on a
+    repeat."""
+    from gaussiancity_tpu_torch.ops import extrusion as ext
+
+    maps = [torch.as_tensor(a, device=dev) for a in _ge_map(2048)]
+    for include_btm in (False, True):
+        args = (*maps, ext.SegInsRelation(), ext.GOOGLE_EARTH_CLASS_SCALES,
+                include_btm)
+        want, n = ext.extrude_rows_plain(*args)
+        got = ext.extrude_points_exact(*args)
+        assert len(want) > 1_000_000 and got.shape == want.shape
+        assert torch.equal(got, want)
+        assert torch.equal(ext.extrude_points_exact(*args), got)
+        padded, total = ext.extrude_rows(*args, capacity=len(want) + 999)
+        assert int(total) == int(n)
+        assert torch.equal(padded[:len(want)], want)
+        assert not padded[len(want):].any()
+
+
+@pytest.mark.parametrize("d_max,cut", [(600, 0.5), (1300, 0.9),
+                                       (4000, 0.2)])
+def test_extrude_kernel_z_cap_both_ends_and_short_capacity(dev, d_max, cut):
+    """The padded form on the tall columns lowered by 40 below z = 0:
+    the z cap cuts them at both ends, ``n_max`` keeps a share ``cut`` of
+    the voxels under it; rows, mask and overflow equal the plain
+    version's."""
+    from gaussiancity_tpu_torch.ops import extrusion as ext
+
+    ins, td, bu, pts = _tall_maps(64, 72, seed=11)
+    td, bu = td - 40, bu - 40
+    host = [torch.as_tensor(a) for a in (ins, td, bu, pts)]
+    rel, table = ext.SegInsRelation(), ext.GOOGLE_EARTH_CLASS_SCALES
+    _, n = ext.extrude_rows_plain(*host, rel, table, False, d_max)
+    n_max = int(int(n) * cut)
+    args = (rel, table, d_max, n_max, False)
+    want = ext.extrude_points(*host, *args)
+    got = ext.extrude_points(*[a.to(dev) for a in host], *args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+    assert int(want[2]) > 0 and (bu < 0).any() and (td >= d_max).any()
+
+
+def test_extrude_padded_form_does_not_wait(dev):
+    """The padded form queues both passes and returns: behind a long
+    device sleep, an event recorded after the call has not completed
+    when it returns.  The exact form waits once, for the row count, so
+    it returns only after the sleep."""
+    import time
+
+    from gaussiancity_tpu_torch.ops import extrusion as ext
+
+    maps = [torch.as_tensor(a, device=dev)
+            for a in _extrusion_maps(0, 96, 80)]
+    args = (*maps, ext.SegInsRelation(), ext.GOOGLE_EARTH_CLASS_SCALES)
+    want = ext.extrude_points_exact(*args)  # builds and loads E1
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1_000_000_000)  # ~0.5 s at the card's clocks
+    out, total = ext.extrude_rows(*args, capacity=len(want))
+    after = torch.cuda.Event()
+    after.record()
+    assert not after.query()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want) and int(total) == len(want)
+    start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+    start.record()
+    torch.cuda._sleep(1_000_000_000)
+    end.record()
+    t0 = time.perf_counter()
+    exact = ext.extrude_points_exact(*args)
+    waited = time.perf_counter() - t0
+    assert end.query()  # the call returned after the sleep had run
+    torch.cuda.synchronize()
+    assert torch.equal(exact, want)
+    assert waited > 0.5 * start.elapsed_time(end) / 1e3
