@@ -169,7 +169,21 @@ Phases, each of which fails the run if it fails:
     item read back; then a small KITTI-360 drive (3D-box XML, two
     categories a view, 256 x 256 x 128, E1 once a category a view on
     each view's frustum crop) through ``process_city`` on the card and on
-    the CPU: Points pkls and instance images equal.
+    the CPU: Points pkls and instance images equal;
+32. the JAX package's Orbax checkpoints: the port's zstd decoder built
+    with g++, the committed fixtures ``tests/data/orbax_rest`` and
+    ``orbax_bldg`` (tiny REST and BLDG train states written by the JAX
+    package after two steps) read with every leaf's SHA-256 equal to the
+    digests recorded with them (read time and MB/s, compressed and
+    decoded), the decoder alone on their two largest zstd chunks and
+    CRC32C on the decoded bytes (MB/s on one host thread); ``--inference`` from them on phase 16's city through phase
+    18's checks (K1, V1 and G1 on every in-process frame and held against
+    their plain versions), its jpgs against the same command on the CPU
+    (within 1 grey level at >= 99 % of pixels); the inference set-up
+    (``get_models``) from Orbax against the same weights from the port's
+    files; one resumed REST and one resumed BLDG step from them, card
+    against CPU within phase 13's limits, each Adam state's step the
+    fixture's count + 1.
 
 Two ranks on one card measure correctness and each rank's path (its
 kernels, its collectives staged through the host by gloo), not NVLink
@@ -191,7 +205,8 @@ frame, under "uses" as "cli_frame"; G1b also the backward's launches
 per step and the A/B of phase 9; the uses of phases 21-23 under
 "rest_step_bf16", "bldg_step_b2_f32", "bldg_step_b2_bf16" and
 "local_step", K3's with its kind appended; K1's on phase 25's frame as
-"bf16_frame"; the uses of phases 28-29 under "ddp_rest_step",
+"bf16_frame"; K1, V1 and G1 on phase 32's frame from the Orbax
+fixtures as "orbax_frame"; the uses of phases 28-29 under "ddp_rest_step",
 "ddp_bldg_step", "sharded_raster" and "sharded_frame"; E1's on phase
 16's dataset view and phase 31's 2048-pixel map as "dataset_view" and
 "ge_2048", with the rows each emitted, the padded time, each pass's
@@ -2848,7 +2863,14 @@ def phase_cli_train(root: str, device="cuda") -> None:
     log(f"CLI --test mode: val L1 {val:.5f}, process {test_s:.2f} s")
 
 
-def phase_cli_inference(city: str, ckpt_dirs: dict, device="cuda") -> dict:
+def orbit_flags(orbit: Tuple[int, ...]) -> List[str]:
+    """The CLI flags of an orbit's (radius, altitude), none for ()."""
+    return [f for name, v in zip(("--radius", "--altitude"), orbit)
+            for f in (name, str(v))]
+
+
+def phase_cli_inference(city: str, ckpt_dirs: dict, device="cuda",
+                        orbit: Tuple[int, ...] = ()) -> dict:
     """The CLI's ``--inference`` from the REST and BLDG checkpoints over
     the generated city (a subprocess on the card), against an in-process
     ``InferencePipeline`` from ``get_models`` of the same directories with
@@ -2856,7 +2878,9 @@ def phase_cli_inference(city: str, ckpt_dirs: dict, device="cuda") -> dict:
     and G1 on every in-process frame (counts set to 0 just before); then
     the first frame once more with the arguments of its K1, V1 and G1
     calls kept, and each kernel held against its plain version on them.
-    Returns each kernel's "cli_frame" use entry."""
+    ``orbit``, where given, is the (radius, altitude) of the orbit, else
+    the CLI's random draw.  Returns each kernel's "cli_frame" use
+    entry."""
     import re
     import tempfile
 
@@ -2877,7 +2901,8 @@ def phase_cli_inference(city: str, ckpt_dirs: dict, device="cuda") -> dict:
     text, wall = run_cli(["--inference", "--ckpt-rest", ckpt_dirs["REST"],
                           "--ckpt-bldg", ckpt_dirs["BLDG"], "--city-dir",
                           city, "--frames", str(CLI_FRAMES), "--output",
-                          video], "the CLI's --inference mode", device)
+                          video, *orbit_flags(orbit)],
+                         "the CLI's --inference mode", device)
     tm = json.loads(re.search(r"inference timings: (\{.*\})",
                               text).group(1))
     jpg_dir = run.frame_dir(video)
@@ -2906,7 +2931,9 @@ def phase_cli_inference(city: str, ckpt_dirs: dict, device="cuda") -> dict:
     H, W = projections["REST"]["SEG"].shape
     poses = get_orbit_camera_poses(max(H, W), n_points=CLI_FRAMES,
                                    rng=np.random.default_rng(0),
-                                   center=(W // 2, H // 2))
+                                   center=(W // 2, H // 2),
+                                   **dict(zip(("radius", "altitude"),
+                                              orbit)))
     lut = get_style_lut(centers, models["BLDG"].cfg.z_dim, seed=0)
     blend.blend_forward.launches = 0
     vis.raycast.launches = 0
@@ -2954,6 +2981,271 @@ def phase_cli_inference(city: str, ckpt_dirs: dict, device="cuda") -> dict:
     del pipe, models, captured, vol, rays, occ
     torch.cuda.empty_cache()
     return uses
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's Orbax checkpoints (phase 32)
+# ---------------------------------------------------------------------------
+
+ORBAX_FIXTURES = {"REST": os.path.join("tests", "data", "orbax_rest"),
+                  "BLDG": os.path.join("tests", "data", "orbax_bldg")}
+ORBAX_COUNT = 2  # the JAX train steps the fixtures were written after
+# the fixtures' tiny camera (256 x 64, f 100: 104 degrees across) sees
+# the city from this orbit (radius, altitude), where the CLI's default
+# orbit of 256-768 / 512-768 frames mostly ground beyond the map
+ORBAX_ORBIT = (120, 150)
+
+
+def leaf_digest(leaf) -> dict:
+    """dtype, shape and SHA-256 of a leaf as the fixtures' digests.json
+    records them (a bf16 tensor through its uint16 bits)."""
+    import hashlib
+
+    import torch
+
+    if isinstance(leaf, torch.Tensor):
+        dtype = str(leaf.dtype).replace("torch.", "")
+        arr = leaf.view(torch.uint16).numpy()
+    else:
+        arr = np.asarray(leaf)
+        dtype = arr.dtype.name
+    return {"dtype": dtype, "shape": list(arr.shape),
+            "sha256": hashlib.sha256(
+                np.ascontiguousarray(arr).tobytes()).hexdigest()}
+
+
+def phase_orbax_read(card: str) -> dict:
+    """Build the decoder, read both fixtures whole and hold every leaf to
+    its recorded digest.  Returns the fixture directories."""
+    from gaussiancity_tpu_torch import native
+    from gaussiancity_tpu_torch.training import orbax_reader
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    native._zstd()
+    log(f"zstd decoder (native/zstd_decode.cpp) built and loaded in "
+        f"{time.perf_counter() - t0:.2f} s")
+    dirs = {}
+    for name, rel in ORBAX_FIXTURES.items():
+        d = dirs[name] = os.path.join(root, rel)
+        check(os.path.isfile(os.path.join(d, "digests.json")),
+              f"no Orbax fixture at {rel}")
+        with open(os.path.join(d, "digests.json")) as f:
+            want = json.load(f)
+        t0 = time.perf_counter()
+        ck = orbax_reader.OrbaxCheckpoint(d)
+        leaves = ck.read()
+        secs = time.perf_counter() - t0
+        got = {"/".join(p): leaf_digest(v) for p, v in leaves.items()
+               if v is not None and not isinstance(v, (dict, tuple, list))}
+        bad = sorted(k for k in set(got) | set(want)
+                     if got.get(k) != want.get(k))
+        check(not bad, f"Orbax fixture {name}: {len(bad)} leaves differ "
+              f"from their digests, e.g. {bad[:3]}")
+        log(f"Orbax read {name} ({rel}, step {ck.step}, epoch {ck.epoch}): "
+            f"{len(got)} leaves equal to their SHA-256 digests; "
+            f"{ck.compressed_bytes} B read, {ck.decoded_bytes} B decoded in "
+            f"{secs:.4f} s (open and manifest included): "
+            f"{ck.compressed_bytes / secs / 1e6:.1f} MB/s compressed, "
+            f"{ck.decoded_bytes / secs / 1e6:.1f} MB/s decoded, host of "
+            f"{card}")
+    orbax_decode_rates(dirs, card)
+    return dirs
+
+
+def orbax_decode_rates(dirs: dict, card: str, n_chunks: int = 2,
+                       min_secs: float = 0.5) -> None:
+    """The zstd decoder and CRC32C alone, on one host thread: the
+    fixtures' largest zstd chunks, each copied into memory once and then
+    decoded (and its output checksummed) again and again for at least
+    ``min_secs``; the median of the repeats in MB/s."""
+    from gaussiancity_tpu_torch import native
+    from gaussiancity_tpu_torch.training import orbax_reader
+
+    zstd_magic = b"\x28\xb5\x2f\xfd"
+    chunks = []
+    for name, d in dirs.items():
+        store = orbax_reader.OrbaxCheckpoint(d).store
+        for key in store.list():
+            value = store.read(key)
+            if bytes(value[:4]) == zstd_magic:
+                chunks.append((len(value), name, key, value))
+    check(len(chunks) >= n_chunks, "the Orbax fixtures hold "
+          f"{len(chunks)} zstd chunks, fewer than {n_chunks}")
+    chunks.sort(key=lambda c: -c[0])
+
+    def median_secs(fn):
+        times, t_end = [], time.perf_counter() + min_secs
+        while len(times) < 5 or time.perf_counter() < t_end:
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return float(np.median(times)), len(times)
+
+    for size, name, key, value in chunks[:n_chunks]:
+        src = np.array(np.frombuffer(value, dtype=np.uint8))
+        out = np.empty(native.zstd_decompress(src).size, dtype=np.uint8)
+        secs, reps = median_secs(lambda: native.zstd_decompress(src, out))
+        crc_secs, crc_reps = median_secs(lambda: native.crc32c(out))
+        log(f"zstd decoder alone, {name} chunk {key!r}: {size} B -> "
+            f"{out.size} B in {secs * 1e3:.3f} ms (median of {reps}): "
+            f"{size / secs / 1e6:.1f} MB/s compressed, "
+            f"{out.size / secs / 1e6:.1f} MB/s decoded; CRC32C of the "
+            f"decoded bytes {out.size / crc_secs / 1e9:.3f} GB/s (median of "
+            f"{crc_reps}); one thread of the host of {card}")
+
+
+def phase_orbax_inference(city: str, dirs: dict, card: str) -> dict:
+    """``--inference`` from the Orbax fixtures: phase 18's checks on the
+    card, the jpgs against the CPU's, and the set-up from Orbax against
+    the same weights from the port's files.  Returns K1, V1 and G1's
+    "orbax_frame" use entries."""
+    import cv2
+    import torch
+
+    from gaussiancity_tpu_torch import run
+    from gaussiancity_tpu_torch.inference.loader import get_models
+    from gaussiancity_tpu_torch.training import checkpoint, orbax_reader
+    from gaussiancity_tpu_torch.training.step import Trainer
+
+    log("phase 32: the CLI's --inference from the Orbax fixtures (its "
+        "lines below say \"CLI frame\")")
+    uses = phase_cli_inference(city, dirs, "cuda", ORBAX_ORBIT)
+    card_jpgs = run.frame_dir(os.path.join(cli_root(), "video", "orbit.mp4"))
+    video = os.path.join(cli_root(), "video_cpu", "orbit.mp4")
+    run_cli(["--inference", "--ckpt-rest", dirs["REST"], "--ckpt-bldg",
+             dirs["BLDG"], "--city-dir", city, "--frames", str(CLI_FRAMES),
+             "--output", video, *orbit_flags(ORBAX_ORBIT)],
+            "--inference from Orbax on the CPU", "cpu")
+    shares = []
+    for i in range(CLI_FRAMES):
+        a = cv2.imread(os.path.join(card_jpgs, f"{i:04d}.jpg")).astype(int)
+        b = cv2.imread(os.path.join(run.frame_dir(video),
+                                    f"{i:04d}.jpg")).astype(int)
+        d = np.abs(a - b)
+        shares.append(float((d <= 1).mean()))
+        check(shares[-1] >= 0.99 and a.std() > 1,
+              f"Orbax frame {i}: card and CPU jpgs differ by more than 1 "
+              f"grey level at {1 - shares[-1]:.4f} of pixels")
+    log(f"--inference from Orbax: card jpgs within 1 grey level of the "
+        f"CPU's at {[round(x, 5) for x in shares]} of pixels")
+
+    # the same weights in the port's own files
+    pt_dirs = {}
+    for name, d in dirs.items():
+        t = Trainer(orbax_reader.OrbaxCheckpoint(d).config, device="cuda")
+        checkpoint.restore_checkpoint(d, t)
+        pt_dirs[name] = os.path.join(cli_root(), f"orbax_as_pt_{name}")
+        checkpoint.save_epoch(pt_dirs[name], 1, t)
+        del t
+    secs = {"orbax": [], "pt": []}
+    for _ in range(3):
+        for kind, ds in (("orbax", dirs), ("pt", pt_dirs)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, models, _ = get_models(ds, device="cuda")
+            torch.cuda.synchronize()
+            secs[kind].append(time.perf_counter() - t0)
+            states = {n: m.state_dict() for n, m in models.items()}
+            if kind == "orbax":
+                first = states
+            else:
+                for n in states:
+                    check(all(torch.equal(first[n][k], v)
+                              for k, v in states[n].items()),
+                          f"{n}: the generator from Orbax differs from the "
+                          "one from the port's file")
+    log(f"inference set-up (get_models, REST + BLDG onto the card): from "
+        f"Orbax median {np.median(secs['orbax']):.4f} s "
+        f"{[round(x, 4) for x in secs['orbax']]}, from the port's files of "
+        f"the same weights median {np.median(secs['pt']):.4f} s "
+        f"{[round(x, 4) for x in secs['pt']]}; {card}")
+    return uses
+
+
+def phase_orbax_resume(dirs: dict, device="cuda") -> None:
+    """One resumed step of each fixture on the card and on the CPU:
+    losses within STEP_LOSS_RTOL, gradients within STEP_GRAD_RTOL of each
+    tensor's largest (BLDG: the tensors 0 in exact arithmetic ~0 on
+    both), each Adam state's step the fixture's count + 1."""
+    import torch
+
+    from gaussiancity_tpu_torch.models import ptv3
+    from gaussiancity_tpu_torch.testing import tiny_bldg_batch
+    from gaussiancity_tpu_torch.training import checkpoint, orbax_reader
+    from gaussiancity_tpu_torch.training.step import Trainer
+    from gaussiancity_tpu_torch.utils import helpers
+
+    table = torch.randn((helpers.MAX_N_INSTANCES, 16),
+                        generator=torch.Generator().manual_seed(7))
+    get_z = helpers.get_z
+    helpers.get_z = lambda gen, ins, z_dim: table.to(ins.device)[
+        ins.long() % table.shape[0]]
+    try:
+        for name, d in dirs.items():
+            cfg = orbax_reader.OrbaxCheckpoint(d).config
+            runs = {}
+            for dev in (device, "cpu"):
+                trainer = Trainer(cfg, device=dev, seed=3)
+                if name == "BLDG":
+                    ptv3.no_drop_path(trainer.generator)
+                    batch = {k: torch.as_tensor(v, device=dev) for k, v in
+                             tiny_bldg_batch(cfg, 256, seed=4).items()}
+                else:
+                    batch = synthetic_rest_batch(cfg, 256, seed=4,
+                                                 device=dev)
+                t0 = time.perf_counter()
+                _, epoch = checkpoint.restore_checkpoint(d, trainer)
+                restore_s = time.perf_counter() - t0
+                steps = {float(s["step"]) for opt in (trainer.g_opt,
+                                                      trainer.d_opt)
+                         for s in opt.state.values()}
+                check(trainer.step == ORBAX_COUNT
+                      and steps == {float(ORBAX_COUNT)},
+                      f"{name} resume on {dev}: step {trainer.step}, Adam "
+                      f"steps {steps}")
+                m = {k: float(v) for k, v in trainer.train_step(batch).items()}
+                steps = {float(s["step"]) for opt in (trainer.g_opt,
+                                                      trainer.d_opt)
+                         for s in opt.state.values()}
+                check(steps == {ORBAX_COUNT + 1.0},
+                      f"{name} resumed step on {dev}: Adam steps {steps}")
+                grads = {f"{n}.{k}": p.grad.detach().cpu().clone()
+                         for n, mod in (("G", trainer.generator),
+                                        ("D", trainer.discriminator))
+                         for k, p in mod.named_parameters()}
+                runs[dev] = (m, grads)
+                log(f"{name} resumed from Orbax on {dev} (epoch {epoch}): "
+                    f"restore {restore_s:.3f} s, GenLoss {m['GenLoss']:.6f}"
+                    f", DisLoss {m['DisLoss']:.6f}")
+            (m_card, g_card), (m_cpu, g_cpu) = runs[device], runs["cpu"]
+            for k, v in m_cpu.items():
+                ok = abs(m_card[k] - v) <= STEP_LOSS_RTOL * abs(v) + 1e-7
+                check(np.isfinite(m_card[k]) and ok,
+                      f"{name} resumed step {k}: card {m_card[k]} vs CPU {v}")
+            gmax = max(float(g.abs().max()) for n, g in g_cpu.items()
+                       if n.startswith("G."))
+            worst, zero = 0.0, 0
+            for n, want in g_cpu.items():
+                scale = float(want.abs().max())
+                if n.startswith("G.") and scale < ZERO_GRAD * gmax:
+                    zero += 1
+                    check(float(g_card[n].abs().max()) < ZERO_GRAD * gmax,
+                          f"{name} resumed step gradient {n} is not ~0 on "
+                          "the card")
+                    continue
+                err = float((g_card[n] - want).abs().max())
+                worst = max(worst, err / scale if scale > 0 else err)
+                check(err <= STEP_GRAD_RTOL * scale,
+                      f"{name} resumed step gradient {n}: card vs CPU "
+                      f"max|d| {err:.3e}, scale {scale:.3e}")
+            log(f"{name} resumed step card vs CPU: losses within "
+                f"{STEP_LOSS_RTOL}, worst gradient max|d| / scale "
+                f"{worst:.3e} over {len(g_cpu) - zero} tensors ({zero} 0 in "
+                f"exact arithmetic); Adam steps {ORBAX_COUNT} -> "
+                f"{ORBAX_COUNT + 1}")
+    finally:
+        helpers.get_z = get_z
 
 
 # ---------------------------------------------------------------------------
@@ -4398,6 +4690,15 @@ def run_phases(profiling: bool, t_start: float) -> int:
     phase_raw_capture(e1, "cuda")
     log(f"phase time: raw capture to training city "
         f"{time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    orbax_dirs = phase_orbax_read(card)
+    orbax_uses = phase_orbax_inference(city, orbax_dirs, card)
+    for k in kernels:
+        if k["name"] in orbax_uses:
+            k.setdefault("uses", {})["orbax_frame"] = orbax_uses[k["name"]]
+    phase_orbax_resume(orbax_dirs)
+    log(f"phase time: Orbax checkpoints {time.perf_counter() - t_phase:.1f}"
+        " s")
     # launches on the timed passes: REST frame, two-model frame, REST
     # train steps, BLDG train steps; K4's are those of its probe's timed
     # drive; per use, K3's from the REST train steps, G1's from the pass

@@ -4,11 +4,11 @@ rendered from (counterpart of ``gaussiancity_tpu/inference/loader.py``;
 upstream scripts/inference.py:57-133).
 
 ``load_generator`` reads one of the port's own per-epoch checkpoints
-(``training/checkpoint.py``) and rebuilds the ``Generator`` from the
-config saved in it; ``get_models`` does so for the REST / BLDG / CAR
-generators of a video.  ``get_city_projections`` and ``get_random_city``
-load a city's projection maps and instance centres.  Reading the JAX
-package's Orbax checkpoints is not ported."""
+(``training/checkpoint.py``) or a step of the JAX package's Orbax
+checkpoints (``training/orbax_reader.py``) and rebuilds the ``Generator``
+from the config saved in it; ``get_models`` does so for the REST / BLDG /
+CAR generators of a video.  ``get_city_projections`` and
+``get_random_city`` load a city's projection maps and instance centres."""
 
 from __future__ import annotations
 
@@ -20,11 +20,16 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from gaussiancity_tpu_torch import interop
 from gaussiancity_tpu_torch.config import Config
 from gaussiancity_tpu_torch.data import dataset_generator as dg
 from gaussiancity_tpu_torch.device import resolve_device
 from gaussiancity_tpu_torch.models.generator import Generator
 from gaussiancity_tpu_torch.training import checkpoint as ckpt
+from gaussiancity_tpu_torch.training import orbax_reader
+
+# the leaves of a train state that a frame needs
+GENERATOR_ITEMS = ("g_params", "g_stats", "z_bank")
 
 
 def load_generator(ckpt_dir: str, epoch: Optional[int] = None, device=None
@@ -36,8 +41,11 @@ def load_generator(ckpt_dir: str, epoch: Optional[int] = None, device=None
     The file also holds the discriminator, VGG19 and both Adam states: it
     is memory-mapped and only the generator's weights and buffers (PTv3's
     running statistics included) are moved to the device.  The device is
-    the card unless the caller asks for the CPU."""
+    the card unless the caller asks for the CPU.  From an Orbax directory
+    only the generator's leaves (``GENERATOR_ITEMS``) are decoded."""
     device = resolve_device(device)
+    if ckpt.is_orbax(ckpt_dir):
+        return load_orbax_generator(ckpt_dir, epoch, device)
     epoch = epoch if epoch is not None else ckpt.latest_epoch(ckpt_dir)
     if epoch is None:
         raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
@@ -50,6 +58,36 @@ def load_generator(ckpt_dir: str, epoch: Optional[int] = None, device=None
     module.load_state_dict(state["generator"])
     logging.info("restored %s (epoch %d): %d generator tensors", path, epoch,
                  len(state["generator"]))
+    return cfg, module.to(device).eval(), state.get("z_bank")
+
+
+def load_orbax_generator(ckpt_dir: str, epoch: Optional[int] = None,
+                         device=None
+                         ) -> Tuple[Config, Generator, Optional[dict]]:
+    """``load_generator`` of a JAX Orbax checkpoint directory (counterpart
+    of ``gaussiancity_tpu/inference/loader.py``): a PTv3 generator whose
+    checkpoint has no ``g_stats`` raises, as there."""
+    ck = orbax_reader.OrbaxCheckpoint(ckpt_dir, epoch)
+    cfg = ck.config
+    module = Generator(cfg.network, n_classes=cfg.dataset.n_classes,
+                       proj_size=cfg.dataset.proj_size)
+    select = orbax_reader.under(*GENERATOR_ITEMS)
+    ckpt.check_orbax_tables(ck, module, select)
+    has_stats = any(p[0] == "g_stats" and len(p) > 1 for p in ck.paths())
+    if cfg.network.ptv3.enabled and not has_stats:
+        # a PTv3 generator at eval normalizes with the running statistics
+        raise ValueError(
+            f"checkpoint {ckpt_dir} has a PTv3 generator but no BN running "
+            "stats ('g_stats'): it predates the running-average BatchNorm; "
+            "re-save it from a resumed training run")
+    state = ck.tree(select)
+    module.load_state_dict(interop.generator_state_from_flax(
+        {"params": state["g_params"],
+         "batch_stats": state.get("g_stats") or {}}, cfg.network))
+    logging.info("restored %s (step %d, epoch %d): %d generator tensors, "
+                 "%.1f MB read in %.3f s", ckpt_dir, ck.step, ck.epoch,
+                 len(module.state_dict()), ck.compressed_bytes / 1e6,
+                 ck.load_seconds)
     return cfg, module.to(device).eval(), state.get("z_bank")
 
 

@@ -11,8 +11,8 @@ The PTv3 subtree (``pt_net``) keeps its names: its ``SubMConv`` kernels
 ``[K^3, C, F]`` and the attention's ``rpe_table`` are copied as they are, ``LayerNorm_0`` scale and bias
 become the ``nn.LayerNorm`` weight and bias, and the ``MaskedBatchNorm``
 running ``mean`` / ``var`` come from the ``batch_stats`` collection.
-``load_train_state`` carries a whole JAX ``TrainState`` (without Adam's
-moments) into the port's ``Trainer``.
+``load_train_state`` carries a whole JAX ``TrainState``, Adam's moments
+and counts included, into the port's ``Trainer``.
 """
 
 from __future__ import annotations
@@ -168,17 +168,21 @@ _SN_LAYERS = ("enc1", "enc2", "enc3", "enc4", "enc5", "lat5", "lat4",
 
 
 def discriminator_state_from_flax(params_np: Mapping,
-                                  batch_stats_np: Mapping
+                                  batch_stats_np: Optional[Mapping]
                                   ) -> Dict[str, torch.Tensor]:
     """Flax ``Discriminator`` params and ``batch_stats`` (the spectral-norm
-    ``u`` and ``sigma``) -> the port's ``Discriminator.state_dict()``."""
+    ``u`` and ``sigma``) -> the port's ``Discriminator.state_dict()``.
+    Without ``batch_stats`` it gives the parameters alone (as for Adam's
+    moments, which have the params' tree)."""
     if "params" in params_np:
         params_np = params_np["params"]
-    if "batch_stats" in batch_stats_np:
+    if batch_stats_np is not None and "batch_stats" in batch_stats_np:
         batch_stats_np = batch_stats_np["batch_stats"]
     out: Dict[str, torch.Tensor] = {}
     for name in _SN_LAYERS:
         _conv(params_np[name], name, out)
+        if batch_stats_np is None:
+            continue
         sn = batch_stats_np[name]["SpectralNorm_0"]
         out[f"{name}.u"] = _t(sn["Conv_0/kernel/u"])
         out[f"{name}.sigma"] = _t(sn["Conv_0/kernel/sigma"])
@@ -197,19 +201,96 @@ def vgg_state_from_flax(params_np: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _field(tree, name: str):
+    """``tree[name]`` of a mapping (a tree read from an Orbax checkpoint),
+    else the attribute (a JAX ``TrainState`` or an optax state); None where
+    absent."""
+    if isinstance(tree, Mapping):
+        return tree.get(name)
+    return getattr(tree, name, None)
+
+
+def _load_adam(opt: torch.optim.Optimizer, module: torch.nn.Module,
+               adam_state, to_state, what: str) -> int:
+    """Carry optax's ``ScaleByAdamState(count, mu, nu)`` into ``opt``:
+    ``mu`` -> ``exp_avg``, ``nu`` -> ``exp_avg_sq`` through the converter
+    of the parameters (``to_state``), matched to ``module``'s parameters
+    by name, and ``count`` -> each parameter's ``step``.  Returns the
+    count."""
+    count = int(np.asarray(_field(adam_state, "count")))
+    params = dict(module.named_parameters())
+    buffers = {n for n, _ in module.named_buffers()}
+    moments = {}
+    for key in ("mu", "nu"):
+        tree = _field(adam_state, key)
+        if tree is None:
+            raise ValueError(f"{what}: the optimizer state has no {key!r}")
+        moments[key] = {n: t for n, t in to_state(tree).items()
+                        if n not in buffers}
+        extra = sorted(set(moments[key]) - set(params))
+        missing = sorted(set(params) - set(moments[key]))
+        if extra or missing:
+            raise ValueError(
+                f"{what}: Adam's {key!r} does not match the parameters: "
+                f"{len(missing)} parameters without a moment "
+                f"{missing[:4]}, {len(extra)} moments without a parameter "
+                f"{extra[:4]}")
+    for name, p in params.items():
+        for key in ("mu", "nu"):
+            if moments[key][name].shape != p.shape:
+                raise ValueError(
+                    f"{what}: Adam's {key!r} of {name} has shape "
+                    f"{tuple(moments[key][name].shape)}, the parameter "
+                    f"{tuple(p.shape)}")
+        # the step tensor as torch.optim.Adam keeps it (float32, on the
+        # host unless the optimizer is capturable or fused)
+        opt.state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": moments["mu"][name].to(p.device, p.dtype).clone(),
+            "exp_avg_sq": moments["nu"][name].to(p.device, p.dtype).clone(),
+        }
+    return count
+
+
 def load_train_state(trainer, state_np) -> None:
-    """Load a JAX ``TrainState`` whose leaves are numpy arrays into the
-    port's ``Trainer``: the generator's params with its ``g_stats``
-    (PTv3's running statistics), the discriminator's params with
-    ``d_stats`` (its spectral-norm state), the VGG params of the perceptual
-    loss and the step.  Adam's moments are not carried: both optimizers
-    start fresh."""
+    """Load a JAX ``TrainState`` whose leaves are numpy arrays (or the
+    same tree as nested dicts and tuples, as ``training.orbax_reader``
+    reads it) into the port's ``Trainer``: the generator's params with its
+    ``g_stats`` (PTv3's running statistics), the discriminator's params
+    with ``d_stats`` (its spectral-norm state), the VGG params of the
+    perceptual loss, the step, and both optimizers: Adam's moments and
+    counts from ``g_opt[0]`` / ``d_opt[0]``.  D's learning rate follows
+    the trainer's step (``Trainer.d_learning_rate``), so the warm-up
+    schedule's count ``d_opt[1].count`` must equal the step; a state where
+    they differ raises.  A state without optimizer states (the moments
+    left out) raises as well."""
+    cfg = trainer.cfg
+    step = int(np.asarray(_field(state_np, "step")))
+    g_stats = _field(state_np, "g_stats") or {}
     trainer.generator.load_state_dict(generator_state_from_flax(
-        {"params": state_np.g_params, "batch_stats": state_np.g_stats or {}},
-        trainer.cfg.network))
+        {"params": _field(state_np, "g_params"), "batch_stats": g_stats},
+        cfg.network))
+    g_opt = _field(state_np, "g_opt")
+    if not g_opt:
+        raise ValueError("the train state has no generator optimizer state")
+    _load_adam(trainer.g_opt, trainer.generator, g_opt[0],
+               lambda t: generator_state_from_flax({"params": t},
+                                                   cfg.network), "g_opt")
     if trainer.use_disc:
         trainer.discriminator.load_state_dict(discriminator_state_from_flax(
-            state_np.d_params, state_np.d_stats))
+            _field(state_np, "d_params"), _field(state_np, "d_stats")))
+        d_opt = _field(state_np, "d_opt")
+        if not d_opt:
+            raise ValueError("the train state has no discriminator "
+                             "optimizer state")
+        _load_adam(trainer.d_opt, trainer.discriminator, d_opt[0],
+                   lambda t: discriminator_state_from_flax(t, None), "d_opt")
+        warm = int(np.asarray(_field(d_opt[1], "count")))
+        if warm != step:
+            raise ValueError(
+                f"d_opt: the warm-up schedule's count {warm} differs from "
+                f"the train state's step {step}; the port derives D's "
+                "learning rate from the step")
     trainer.ploss.model.load_state_dict(
-        vgg_state_from_flax(state_np.ploss_params))
-    trainer.step = int(state_np.step)
+        vgg_state_from_flax(_field(state_np, "ploss_params")))
+    trainer.step = step

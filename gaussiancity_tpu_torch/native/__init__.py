@@ -1,12 +1,15 @@
 # -*- coding: utf-8 -*-
-"""The host extruder in C++ (counterpart of ``gaussiancity_tpu/native``),
-driven through ctypes.
+"""Host code in C++, driven through ctypes: the footprint extruder
+(counterpart of ``gaussiancity_tpu/native``) and the zstd decoder with
+CRC32C that reads the JAX package's Orbax checkpoints.
 
-``footprint_extruder.cpp`` is compiled with g++ at first use into
-``_build/`` and cached by source mtime; without a compiler the call
-raises ``NativeUnavailable``.  It is the host counterpart of kernel E1
-(``ops.extrusion``), which the dataset path uses; nothing in the port
-falls back to it.
+Each source is compiled with g++ at first use into ``_build/`` and cached
+by source mtime; without a compiler the call raises ``NativeUnavailable``.
+The extruder is the host counterpart of kernel E1 (``ops.extrusion``),
+which the dataset path uses; nothing in the port falls back to it.
+``zstd_decode.cpp`` is written from RFC 8878 and links no zstd library;
+nothing falls back from it either.  ctypes releases the GIL for the
+length of each call, so threads decode in parallel.
 """
 
 from __future__ import annotations
@@ -21,27 +24,34 @@ import numpy as np
 _THIS_DIR = os.path.dirname(os.path.abspath(__file__))
 _BUILD_DIR = os.path.join(_THIS_DIR, "_build")
 _LIB: Optional[ctypes.CDLL] = None
+_ZSTD: Optional[ctypes.CDLL] = None
 
 
 class NativeUnavailable(RuntimeError):
     pass
 
 
-def _build_lib() -> str:
-    src = os.path.join(_THIS_DIR, "footprint_extruder.cpp")
-    out = os.path.join(_BUILD_DIR, "libgct_native.so")
+def _build_lib(source: str = "footprint_extruder.cpp",
+               name: str = "libgct_native.so",
+               flags: Sequence[str] = ("-fopenmp",)) -> str:
+    src = os.path.join(_THIS_DIR, source)
+    out = os.path.join(_BUILD_DIR, name)
     os.makedirs(_BUILD_DIR, exist_ok=True)
     if os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(src):
         return out
-    cmd = ["g++", "-O3", "-shared", "-fPIC", "-fopenmp", "-std=c++17",
-           src, "-o", out]
+    # each build writes its own file and renames it into place, so that
+    # processes building at once never load a half-written library
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = ["g++", "-O3", "-shared", "-fPIC", *flags, "-std=c++17",
+           src, "-o", tmp]
     try:
         subprocess.run(cmd, check=True, capture_output=True)
     except (subprocess.CalledProcessError, FileNotFoundError) as e:
         detail = getattr(e, "stderr", b"")
         raise NativeUnavailable(
-            f"failed to build native extruder: {e}\n"
+            f"failed to build {source}: {e}\n"
             f"{detail.decode() if detail else ''}")
+    os.replace(tmp, out)
     return out
 
 
@@ -111,3 +121,84 @@ def extrude_points_native(
         out = np.empty((n, 5), dtype=np.int32)
         n = call(out, n)
     return out[:n].copy()
+
+
+# ---------------------------------------------------------------------------
+# zstd and CRC32C
+# ---------------------------------------------------------------------------
+
+def _zstd() -> ctypes.CDLL:
+    global _ZSTD
+    if _ZSTD is None:
+        lib = ctypes.CDLL(_build_lib("zstd_decode.cpp", "libgct_zstd.so",
+                                     flags=()))
+        err = [ctypes.c_char_p, ctypes.c_size_t,
+               ctypes.POINTER(ctypes.c_int64)]
+        lib.gct_zstd_decompress.restype = ctypes.c_int64
+        lib.gct_zstd_decompress.argtypes = [
+            ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p,
+            ctypes.c_size_t, *err]
+        lib.gct_zstd_decompress_alloc.restype = ctypes.c_int64
+        lib.gct_zstd_decompress_alloc.argtypes = [
+            ctypes.c_void_p, ctypes.c_size_t,
+            ctypes.POINTER(ctypes.c_void_p), *err]
+        lib.gct_free.restype = None
+        lib.gct_free.argtypes = [ctypes.c_void_p]
+        lib.gct_crc32c.restype = ctypes.c_uint32
+        lib.gct_crc32c.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
+        _ZSTD = lib
+    return _ZSTD
+
+
+def _bytes_view(data) -> np.ndarray:
+    """bytes, a memoryview or an array (a memmap too) as contiguous uint8
+    without a copy where it already is contiguous."""
+    if isinstance(data, np.ndarray):
+        return np.ascontiguousarray(data).reshape(-1).view(np.uint8)
+    return np.frombuffer(data, dtype=np.uint8)
+
+
+def zstd_decompress(data, out: Optional[np.ndarray] = None) -> np.ndarray:
+    """Decode the zstd frames of ``data`` -> uint8 array.
+
+    ``out``, a writable C-contiguous array, receives the decoded bytes;
+    its size is the one the caller declares, and a stream that decodes to
+    any other size raises.  Without ``out`` the library sizes the buffer.
+    Malformed input raises ``ValueError`` naming the byte offset; no
+    partial output is returned."""
+    lib = _zstd()
+    src = _bytes_view(data)
+    msg = ctypes.create_string_buffer(256)
+    where = ctypes.c_int64(0)
+    if out is not None:
+        if not (out.flags.c_contiguous and out.flags.writeable):
+            raise ValueError("out must be a writable C-contiguous array")
+        dst = out.reshape(-1).view(np.uint8)
+        n = lib.gct_zstd_decompress(src.ctypes.data, src.size,
+                                    dst.ctypes.data, dst.size, msg,
+                                    len(msg), ctypes.byref(where))
+        if n < 0:
+            raise ValueError(f"zstd: {msg.value.decode()} at byte "
+                             f"{where.value}")
+        if n != dst.size:
+            raise ValueError(f"zstd: decoded {n} bytes where {dst.size} "
+                             "were declared")
+        return out
+    ptr = ctypes.c_void_p()
+    n = lib.gct_zstd_decompress_alloc(src.ctypes.data, src.size,
+                                      ctypes.byref(ptr), msg, len(msg),
+                                      ctypes.byref(where))
+    if n < 0:
+        raise ValueError(f"zstd: {msg.value.decode()} at byte {where.value}")
+    try:
+        result = np.empty(n, dtype=np.uint8)
+        ctypes.memmove(result.ctypes.data, ptr, n)
+    finally:
+        lib.gct_free(ptr)
+    return result
+
+
+def crc32c(data) -> int:
+    """CRC32C (Castagnoli) of ``data``."""
+    src = _bytes_view(data)
+    return int(_zstd().gct_crc32c(src.ctypes.data, src.size))

@@ -90,6 +90,49 @@ def table_shape(in_channels: int, n_levels: int, base_resolution: int,
     return n_levels, max(_level_rows(offsets, total)), lvl_channels
 
 
+def repack_legacy_table(packed, in_channels: int, n_levels: int,
+                        base_resolution: int, desired_resolution: int,
+                        log2_hashmap_size: int) -> np.ndarray:
+    """Migrate a round-1 packed ``[total_rows, C]`` embedding table to the
+    current ``[L, R_max, C]`` layout (row ``r`` of level ``l`` lives at
+    packed row ``offsets[l] + r``; rows past a level's size are zero)."""
+    packed = np.asarray(packed)
+    total, C = packed.shape
+    _, offsets, _, _, expect_total = level_params(
+        in_channels, n_levels, base_resolution, desired_resolution,
+        log2_hashmap_size)
+    if total != expect_total:
+        raise ValueError(
+            f"packed table has {total} rows; the level layout expects "
+            f"{expect_total}: not a legacy GridEncoder table")
+    rows = _level_rows(offsets, expect_total)
+    out = np.zeros((n_levels, max(rows), C), packed.dtype)
+    for lvl in range(n_levels):
+        out[lvl, :rows[lvl]] = packed[offsets[lvl]:offsets[lvl] + rows[lvl]]
+    return out
+
+
+def raise_if_legacy_table(saved_shapes: Dict[str, Tuple[int, ...]],
+                          want: Sequence[int], where: str) -> None:
+    """Refuse a checkpoint whose hash table is a round-1 packed 2-D
+    ``[total_rows, C]`` ``…embeddings`` leaf where the model wants
+    ``[L, R_max, C]`` (``want``), naming the migration.  ``saved_shapes``
+    maps each saved leaf's path to its shape; called before any weight is
+    loaded."""
+    for name, shape in saved_shapes.items():
+        if (name.endswith("embeddings") and shape is not None
+                and len(shape) == 2 and len(want) == 3):
+            raise ValueError(
+                f"checkpoint {where} stores a legacy packed hash table "
+                f"'{name}' of shape {tuple(shape)} but the current "
+                f"GridEncoder expects {tuple(want)} ([levels, rows, "
+                "channels]).  Migrate it once with gaussiancity_tpu_torch."
+                "ops.hash_grid.repack_legacy_table(packed, in_channels, "
+                "n_levels, base_resolution, desired_resolution, "
+                "log2_hashmap_size) and re-save; row r of level l == packed "
+                "row offsets[l]+r.")
+
+
 def corner_bits(D: int, device=None) -> torch.Tensor:
     """[2^D, D] corner offsets (bit d of the corner index)."""
     c = torch.arange(1 << D, device=device)

@@ -11,8 +11,11 @@ validate a checkpoint, or render a city video from checkpoints.
 It takes the flags of the JAX ``run.py`` and ``--device`` (default
 ``cuda``; without a card it raises unless given ``--device cpu``).
 Recipes are the constructors of ``config``; ``-c`` replaces the recipe
-with a JSON config.  Checkpoints are the port's own (``training/
-checkpoint.py``).
+with a JSON config.  ``-p`` and ``--ckpt-*`` take the port's own
+checkpoint directories (``training/checkpoint.py``) or the JAX package's
+Orbax checkpoint directories (``training/orbax_reader.py``): render a
+JAX-trained model, validate it, or resume its training with its Adam
+state; a resumed run writes the port's own files.
 
 Data-parallel training runs one process a rank, each started with the
 same flags and its own ``--process-id``:

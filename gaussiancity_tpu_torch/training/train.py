@@ -67,9 +67,11 @@ def train(cfg: Config, dataset_name: Optional[str] = None,
     """Train ``cfg`` on ``dataset_name`` (default ``cfg.dataset.name``)
     for ``cfg.train.n_epochs`` epochs, or until ``max_steps`` steps in all,
     on ``device`` (the card unless the caller asks for the CPU).  Resumes
-    from the latest epoch checkpoint in the directory ``resume_from``;
-    ``cfg.train.seed`` seeds the weights, the loader and the steps' draws.
-    Returns the trainer."""
+    from the latest epoch checkpoint in the directory ``resume_from``: the
+    port's own files, or the JAX package's Orbax checkpoints (Adam's
+    moments and the step included), after which the run goes on from the
+    saved epoch + 1 and writes the port's files.  ``cfg.train.seed`` seeds
+    the weights, the loader and the steps' draws.  Returns the trainer."""
     seed = cfg.train.seed
     dataset_name = dataset_name or cfg.dataset.name
     world = mesh.get_world_size()
@@ -86,6 +88,12 @@ def train(cfg: Config, dataset_name: Optional[str] = None,
         batch_size=cfg.train.batch_size, shuffle=False,
         num_workers=cfg.train.n_workers,
         prefetch=cfg.train.prefetch_batches)
+    ckpt_dir = f"{cfg.output_dir}/ckpt/{cfg.exp_name or 'default'}"
+    if ckpt.is_orbax(ckpt_dir):
+        raise ValueError(
+            f"{ckpt_dir} holds the JAX package's Orbax checkpoints; the "
+            "port writes its own epoch files, so give this run another "
+            "experiment name (-e) and resume from that directory with -p")
     trainer = Trainer(cfg, device=device, seed=seed)
 
     init_epoch = 0
@@ -102,7 +110,6 @@ def train(cfg: Config, dataset_name: Optional[str] = None,
     if master:
         writer = SummaryWriter(cfg.output_dir, cfg.exp_name)
         writer.add_config(cfg.to_dict())
-    ckpt_dir = f"{cfg.output_dir}/ckpt/{cfg.exp_name or 'default'}"
     n_batches = len(train_loader)
     global_step = trainer.step
     log_freq = max(1, cfg.train.log_freq)

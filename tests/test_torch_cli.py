@@ -38,6 +38,7 @@ from gaussiancity_tpu_torch.data import dataset_generator as dg
 from gaussiancity_tpu_torch.inference import loader
 from gaussiancity_tpu_torch.inference import pipeline
 from gaussiancity_tpu_torch.training import checkpoint
+from gaussiancity_tpu_torch.training import orbax_reader
 from gaussiancity_tpu_torch.testing import share_cpu_cores
 
 from test_dataset_generator import synthetic_city
@@ -270,10 +271,10 @@ class _JaxPipelineCorrected(jpipeline.InferencePipeline):
         return points[np.unique(vp[vp >= 0])], jnp.asarray(ins == 1)
 
 
-def test_inference_matches_jax(rest_pair, bldg_pair, tmp_path, monkeypatch):
-    """REST + BLDG from checkpoints, two orbit frames, both packages'
-    CLIs: the frames before encoding agree to the pipeline tests'
-    tolerance, and the port writes the video and the jpgs."""
+def _inference_checkpoints(rest_pair, bldg_pair, tmp_path):
+    """The REST and BLDG generators of the pipeline tests saved by each
+    package (``jax_rest`` / ``jax_bldg``: Orbax, ``port_rest`` /
+    ``port_bldg``: the port's files), a city and the CLI's frame flags."""
     from gaussiancity_tpu.config import Config as JConfig
 
     cfg, tcfg, gen, params, tgen = rest_pair
@@ -293,8 +294,15 @@ def test_inference_matches_jax(rest_pair, bldg_pair, tmp_path, monkeypatch):
     city = tmp_path / "City"
     dg.dump_projections(synthetic_projections(cfg.dataset.proj_size),
                         str(city / "Projection"))
-    flags = ["--city-dir", str(city), "--frames", "2", "--radius", "30",
-             "--altitude", "30", "--max-points", "2048"]
+    return ["--city-dir", str(city), "--frames", "2", "--radius", "30",
+            "--altitude", "30", "--max-points", "2048"]
+
+
+def test_inference_matches_jax(rest_pair, bldg_pair, tmp_path, monkeypatch):
+    """REST + BLDG from checkpoints, two orbit frames, both packages'
+    CLIs: the frames before encoding agree to the pipeline tests'
+    tolerance, and the port writes the video and the jpgs."""
+    flags = _inference_checkpoints(rest_pair, bldg_pair, tmp_path)
 
     jfloat, jframes = [], []
 
@@ -339,3 +347,82 @@ def test_inference_matches_jax(rest_pair, bldg_pair, tmp_path, monkeypatch):
     assert out.stat().st_size > 0
     jpgs = sorted(os.listdir(tmp_path / "port" / "video_frames"))
     assert jpgs == ["0000.jpg", "0001.jpg"]
+
+
+def test_inference_from_orbax_checkpoints(rest_pair, bldg_pair, tmp_path,
+                                          monkeypatch):
+    """``--inference`` straight from the JAX package's Orbax directories:
+    the same frames, to the bit, as from the port's own checkpoints of
+    the same weights, and the same jpgs."""
+    flags = _inference_checkpoints(rest_pair, bldg_pair, tmp_path)
+    frames = {}
+    u8 = pipeline.frame_to_uint8
+    for kind in ("jax", "port"):
+        got = frames[kind] = []
+        monkeypatch.setattr(pipeline, "frame_to_uint8", lambda img, got=got: (
+            got.append(img.numpy().copy()), u8(img))[1])
+        assert run.main(["--inference", "--ckpt-rest",
+                         str(tmp_path / f"{kind}_rest"), "--ckpt-bldg",
+                         str(tmp_path / f"{kind}_bldg"), "--output",
+                         str(tmp_path / kind / "video.mp4"), "--device",
+                         "cpu", *flags]) == 0
+    assert len(frames["jax"]) == len(frames["port"]) == 2
+    for a, b in zip(frames["jax"], frames["port"]):
+        assert np.array_equal(a, b) and a.std() > 0
+    for i in range(2):
+        name = f"{i:04d}.jpg"
+        assert (tmp_path / "jax" / "video_frames" / name).read_bytes() == \
+            (tmp_path / "port" / "video_frames" / name).read_bytes()
+
+
+def test_test_mode_and_resume_from_an_orbax_checkpoint(tmp_path, caplog):
+    """``--test -p`` and a training resume from the REST fixture of
+    ``test_torch_orbax.py`` (a JAX train state after two steps, epoch 1):
+    the validation L1 equals the one from the port's own file of the same
+    state; the resumed run goes on at epoch 2 and step 3 and writes the
+    port's epoch file; a run that would write into the Orbax directory
+    is refused."""
+    from test_torch_orbax import FIXTURES
+
+    src = FIXTURES["rest"]
+    cfg = C.Config.from_dict(
+        orbax_reader.OrbaxCheckpoint(str(src)).config.to_dict())
+    cfg = cfg.replace(output_dir=str(tmp_path / "out"), exp_name="resumed",
+                      dataset=cfg.dataset.replace(
+                          test_crop_size=cfg.dataset.train_crop_size),
+                      train=cfg.train.replace(n_epochs=2, n_workers=1,
+                                              ckpt_save_freq=1,
+                                              log_freq=1))
+    cfg_path = tmp_path / "cfg.json"
+    cfg_path.write_text(cfg.to_json())
+    common = ["-c", str(cfg_path), "-d", "SYNTHETIC", "--device", "cpu"]
+
+    def val_l1(ckpt_dir) -> str:
+        caplog.clear()
+        with caplog.at_level("INFO"):
+            assert run.main(common + ["--test", "-p", str(ckpt_dir)]) == 0
+        return re.search(r"\[Val\]\[Epoch 1\] L1Loss (\S+)",
+                         caplog.text).group(1)
+
+    from gaussiancity_tpu_torch.training.step import Trainer
+
+    t = Trainer(cfg, device="cpu")
+    checkpoint.restore_checkpoint(str(src), t)
+    checkpoint.save_epoch(str(tmp_path / "port"), 1, t)
+    assert val_l1(src) == val_l1(tmp_path / "port")
+
+    with caplog.at_level("INFO"):
+        assert run.main(common + ["-p", str(src), "--max-steps", "3"]) == 0
+    assert f"Resumed from {src} at epoch 1" in caplog.text
+    ckpt_dir = tmp_path / "out" / "ckpt" / "resumed"
+    assert sorted(os.listdir(ckpt_dir)) == ["epoch-00002.pt"]
+    blob = torch.load(ckpt_dir / "epoch-00002.pt", weights_only=True)
+    assert blob["state"]["step"] == 3
+    assert {float(s["step"]) for s in
+            blob["state"]["g_opt"]["state"].values()} == {3.0}
+    # the next run of this experiment resumes from the port's file
+    assert checkpoint.latest_epoch(str(ckpt_dir)) == 2
+    import shutil
+    shutil.copytree(src, tmp_path / "out" / "ckpt" / "jaxdir")
+    with pytest.raises(ValueError, match="Orbax"):
+        run.main(common + ["-e", "jaxdir", "--max-steps", "3"])
