@@ -339,6 +339,21 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def launched(name: str) -> int:
+    """Launches of the port's kernel ``name`` (``_kernels.launches``)."""
+    from gaussiancity_tpu_torch import _kernels
+
+    return _kernels.launches[name]
+
+
+def reset_launches() -> None:
+    """Set every kernel's count in ``_kernels.launches`` to 0."""
+    from gaussiancity_tpu_torch import _kernels
+
+    for name in _kernels.launches:
+        _kernels.launches[name] = 0
+
+
 def synthetic_city(P: int = 512, n_buildings: int = 48, seed: int = 0):
     """Roads and a random grid of box buildings (the benchmark city of the
     JAX package's bench.py): REST projections and instance centres."""
@@ -716,8 +731,6 @@ def phase_frame(pipe, projections, centers, poses, style_lut=None,
     import torch
 
     from gaussiancity_tpu_torch.ops import hash_grid
-    from gaussiancity_tpu_torch.ops import visibility as vis
-    from gaussiancity_tpu_torch.ops.rasterizer import blend
 
     t0 = time.perf_counter()
     g1_args = capture_calls(
@@ -731,17 +744,14 @@ def phase_frame(pipe, projections, centers, poses, style_lut=None,
     pipe.frame_stats.clear()
     pipe._pts_fp = None  # rebuild the volume: the timed pass is complete
     torch.cuda.reset_peak_memory_stats()
-    blend.blend_forward.launches = 0
-    vis.raycast.launches = 0
-    hash_grid.hash_encode_fwd.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     frames = pipe.render_trajectory(projections, centers, poses,
                                     style_lut=style_lut)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"blend_fwd": blend.blend_forward.launches,
-                "raycast": vis.raycast.launches,
-                "hash_encode_fwd": hash_grid.hash_encode_fwd.launches}
+    launches = {name: launched(name)
+                for name in ("blend_fwd", "raycast", "hash_encode_fwd")}
     n = len(poses)
     log(f"{what}: {n} frames of {frames[0].shape} in {wall:.3f} s -> "
         f"{wall / n * 1e3:.2f} ms/frame (set-up included); peak device "
@@ -797,14 +807,12 @@ def phase_profile(pipe, projections, centers, poses, style_lut=None):
     with torch.inference_mode(), profiling.trace(
             trace_dir("frames")) as prof:
         t0 = time.perf_counter()
-        for i, pose in enumerate(poses):
-            with profiling.step_annotation("frame", i):
-                frame_to_uint8(pipe.render_pose(
-                    state[0], centers, *state[1:], pose)[0])
+        for pose in poses:
+            frame_to_uint8(pipe.render_pose(state[0], centers, *state[1:],
+                                            pose)[0])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    report_profile(prof, wall_ms, f"{len(poses)} frames",
-                   {f"frame#{i}" for i in range(len(poses))})
+    report_profile(prof, wall_ms, f"{len(poses)} frames")
 
 
 def synthetic_rest_batch(cfg, n_pts: int, seed: int, device):
@@ -854,14 +862,12 @@ def rest_train_config():
 def wrapped_calls(targets, hook):
     """Within the block, each (module, name) of ``targets`` is replaced by
     a wrapper that returns ``hook(name, fn, args, kwargs)``, ``fn`` the
-    original.  A wrapper counts the launches made under its name: the
-    real counts see none of these."""
+    original."""
     originals = [(mod, name, getattr(mod, name)) for mod, name in targets]
 
     def wrap(name, fn):
         def call(*args, **kwargs):
             return hook(name, fn, args, kwargs)
-        call.launches = 0
         return call
 
     for mod, name, fn in originals:
@@ -1382,9 +1388,9 @@ def phase_k4(device) -> dict:
     from gaussiancity_tpu_torch.ops import gather_rowsum as gr
 
     table, idx = gr.probe_inputs(seed=0, device=device)
-    gr.gather_rowsum.launches = 0
+    reset_launches()
     ms = cuda_time_ms(lambda: gr.gather_rowsum(table, idx))
-    launches = gr.gather_rowsum.launches
+    launches = launched("gather_rowsum")
     got = gr.gather_rowsum(table, idx)
     again = gr.gather_rowsum(table, idx)
     want = gr.gather_rowsum_plain(table, idx)
@@ -1501,8 +1507,7 @@ def phase_train(trainer, batch, n_warm: int = 2, n_timed: int = 5):
     launch counts set to 0 just before them."""
     import torch
 
-    from gaussiancity_tpu_torch.ops import hash_grid, hash_grid_bwd
-    from gaussiancity_tpu_torch.ops.rasterizer import blend
+    from gaussiancity_tpu_torch.ops import hash_grid_bwd
 
     def snapshot():
         g = trainer.generator
@@ -1522,9 +1527,7 @@ def phase_train(trainer, batch, n_warm: int = 2, n_timed: int = 5):
     trainer.stage_ms.clear()
     trainer.time_stages = True
     torch.cuda.reset_peak_memory_stats()
-    # K3's launches by use: the wrapper's own count read around each of
-    # its two callers
-    k3 = hash_grid_bwd.segment_sum_sorted
+    # K3's launches by use: its count read around each of its two callers
     k3_callers = {"hash_grid": "hash_grad_embeddings",
                   "per_gaussian": "reduce_rows"}
     k3_calls = dict.fromkeys(k3_callers, 0)
@@ -1533,30 +1536,27 @@ def phase_train(trainer, batch, n_warm: int = 2, n_timed: int = 5):
 
     def observed(use):
         def call(*args):
-            before = k3.launches
+            before = launched("segment_sum")
             out = callers[use](*args)
-            k3_calls[use] += k3.launches - before
+            k3_calls[use] += launched("segment_sum") - before
             return out
         return call
 
     for use, name in k3_callers.items():
         setattr(hash_grid_bwd, name, observed(use))
-    counters = {"blend_fwd": blend.blend_forward,
-                "blend_bwd": blend.blend_backward, "segment_sum": k3,
-                "hash_encode_fwd": hash_grid.hash_encode_fwd,
-                "hash_encode_bwd": hash_grid.hash_encode_bwd}
-    for fn in counters.values():
-        fn.launches = 0
+    counters = ("blend_fwd", "blend_bwd", "segment_sum", "hash_encode_fwd",
+                "hash_encode_bwd")
+    reset_launches()
     step_ms = []
     for i in range(n_timed):
         before = snapshot()
-        counts = {name: fn.launches for name, fn in counters.items()}
+        counts = {name: launched(name) for name in counters}
         t0 = time.perf_counter()
         m = trainer.train_step(batch)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
-        per_step = {name: fn.launches - counts[name]
-                    for name, fn in counters.items()}
+        per_step = {name: launched(name) - counts[name]
+                    for name in counters}
         check(min(per_step.values()) >= 1 and per_step["segment_sum"] >= 2,
               f"train step {i}: a kernel was not launched ({per_step})")
         after = snapshot()
@@ -1576,7 +1576,7 @@ def phase_train(trainer, batch, n_warm: int = 2, n_timed: int = 5):
     trainer.time_stages = False
     for use, name in k3_callers.items():
         setattr(hash_grid_bwd, name, callers[use])
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = {name: launched(name) for name in counters}
     log(f"launches on the {n_timed} timed steps: {launches} (each kernel on"
         f" every step, K3 twice); K3 calls by use {k3_calls}")
     check(sum(k3_calls.values()) == launches["segment_sum"]
@@ -1646,22 +1646,21 @@ def phase_train_profile(trainer, batch, n: int = 3):
     torch.cuda.synchronize()
     with profiling.trace(trace_dir("train_steps")) as prof:
         t0 = time.perf_counter()
-        for i in range(n):
-            with profiling.step_annotation("train_step", i):
-                trainer.train_step(batch)
+        for _ in range(n):
+            trainer.train_step(batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    report_profile(prof, wall_ms, f"{n} train steps",
-                   {f"train_step#{i}" for i in range(n)})
+    report_profile(prof, wall_ms, f"{n} train steps")
 
 
-def report_profile(prof, wall_ms: float, what: str,
-                   annotations: set) -> None:
-    """Device time by kernel and the busy share of ``wall_ms``.  The step
-    annotations (``annotations``, the names ``step_annotation`` gave)
-    also show on the device's timeline, spanning their kernels: they are
-    not device work and are left out."""
+def report_profile(prof, wall_ms: float, what: str) -> None:
+    """Device time by kernel and the busy share of ``wall_ms``.  The
+    port's spans (``gct/...``, ``utils.profiling``) also show on the
+    device's timeline, spanning their kernels: they are not device work
+    and are left out."""
     import torch
+
+    from gaussiancity_tpu_torch.utils import profiling
 
     def device_us(e):
         return getattr(e, "self_device_time_total",
@@ -1669,7 +1668,8 @@ def report_profile(prof, wall_ms: float, what: str,
 
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
-              and device_us(e) > 0 and e.key not in annotations]
+              and device_us(e) > 0
+              and not e.key.startswith(profiling.PREFIX)]
     events.sort(key=lambda e: -device_us(e))
     busy_ms = sum(device_us(e) for e in events) / 1e3
     log(f"profile: {what}, wall {wall_ms:.2f} ms, device busy "
@@ -1927,7 +1927,6 @@ def phase_bldg_train(trainer, batch, eval_batch, n_warm: int = 2,
 
     from gaussiancity_tpu_torch.models import ptv3
     from gaussiancity_tpu_torch.ops import hash_grid_bwd
-    from gaussiancity_tpu_torch.ops.rasterizer import blend
 
     gen = trainer.generator
     net = gen.pt_net.net
@@ -1969,33 +1968,30 @@ def phase_bldg_train(trainer, batch, eval_batch, n_warm: int = 2,
     trainer.stage_ms.clear()
     trainer.time_stages = True
     torch.cuda.reset_peak_memory_stats()
-    k3 = hash_grid_bwd.segment_sum_sorted
     reduce_rows = hash_grid_bwd.reduce_rows
     per_gaussian = [0]
 
     def observed(*args):
-        before = k3.launches
+        before = launched("segment_sum")
         out = reduce_rows(*args)
-        per_gaussian[0] += k3.launches - before
+        per_gaussian[0] += launched("segment_sum") - before
         return out
 
     hash_grid_bwd.reduce_rows = observed
-    counters = {"blend_fwd": blend.blend_forward,
-                "blend_bwd": blend.blend_backward, "segment_sum": k3}
-    for fn in counters.values():
-        fn.launches = 0
+    counters = ("blend_fwd", "blend_bwd", "segment_sum")
+    reset_launches()
     step_ms = []
     try:
         for i in range(n_timed):
             before, stats = snapshot(), ptv3_stats(gen)
-            counts = {name: fn.launches for name, fn in counters.items()}
+            counts = {name: launched(name) for name in counters}
             k3_before = per_gaussian[0]
             t0 = time.perf_counter()
             m = trainer.train_step(batch)
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
-            per_step = {name: fn.launches - counts[name]
-                        for name, fn in counters.items()}
+            per_step = {name: launched(name) - counts[name]
+                        for name in counters}
             B = batch["pts"].shape[0]
             check(min(per_step.values()) >= B
                   and per_gaussian[0] - k3_before >= B,
@@ -2027,7 +2023,7 @@ def phase_bldg_train(trainer, batch, eval_batch, n_warm: int = 2,
         hash_grid_bwd.reduce_rows = reduce_rows
         for h in hooks:
             h.remove()
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = {name: launched(name) for name in counters}
     launches["segment_sum_by_use"] = {"bldg_step": per_gaussian[0]}
     log(f"launches on the {n_timed} timed {what} steps: {launches}")
     check(per_gaussian[0] == launches["segment_sum"],
@@ -2357,7 +2353,6 @@ def phase_dataset_generation(projections, device="cuda",
     from gaussiancity_tpu_torch.data.datasets import get_dataset
     from gaussiancity_tpu_torch.inference.pipeline import (
         get_orbit_camera_poses)
-    from gaussiancity_tpu_torch.ops import extrusion as ext
     from gaussiancity_tpu_torch.ops import visibility as vis
 
     root = os.path.join(cli_root(), "data")
@@ -2381,16 +2376,16 @@ def phase_dataset_generation(projections, device="cuda",
     log(f"first extrusion of the PNG maps in this process (set-up, untimed "
         f"below): {(time.perf_counter() - t0) * 1e3:.2f} ms")
     targets = view_targets()
-    vis.raycast.launches = 0
-    ext.extrude_rows.launches = 0
+    reset_launches()
     with timed_calls(targets) as t:
         t0 = time.perf_counter()
         dg.generate_city("GOOGLE_EARTH", city, vol_shape=vol_shape,
                          device=device)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    launches = vis.raycast.launches
-    e1_launches = ext.extrude_rows.launches
+    launches = launched("raycast")
+    # E1's two passes (``extrude`` launches) a category
+    e1_launches = launched("extrude") // 2
     n = DATASET_VIEWS
     check(launches == n, f"generate_city launched V1 {launches} times for "
           f"{n} views")
@@ -2669,7 +2664,6 @@ def phase_raw_capture(e1: dict, device="cuda") -> None:
     from gaussiancity_tpu_torch.data.datasets import get_dataset
     from gaussiancity_tpu_torch.native import extrude_points_native
     from gaussiancity_tpu_torch.ops import extrusion as ext
-    from gaussiancity_tpu_torch.ops import visibility as vis
 
     root = os.path.join(cli_root(), "raw")
     t0 = time.perf_counter()
@@ -2680,20 +2674,19 @@ def phase_raw_capture(e1: dict, device="cuda") -> None:
     targets = view_targets() + [(ki, "get_projections"),
                                 (gd, "recover_camera_parameters"),
                                 (dg, "dump_projections")]
-    vis.raycast.launches = 0
-    ext.extrude_rows.launches = 0
+    reset_launches()
     with timed_calls(targets) as t:
         t0 = time.perf_counter()
         gd.process_city("GOOGLE_EARTH", cap, osm_dir, DATASET_VOL,
                         device=device)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    launches = ext.extrude_rows.launches
+    launches = launched("extrude")
     projections = dg.load_projections(os.path.join(cap, "Projection"))
-    check(launches == len(projections)
-          and vis.raycast.launches == GE_VIEWS,
-          f"process_city launched E1 {launches} times for a city of "
-          f"{len(projections)} categories and V1 {vis.raycast.launches} "
+    check(launches == 2 * len(projections)
+          and launched("raycast") == GE_VIEWS,
+          f"process_city launched E1's passes {launches} times for a city "
+          f"of {len(projections)} categories and V1 {launched('raycast')} "
           f"times for {GE_VIEWS} views")
     ingest = (t["get_projections"][0] + t["recover_camera_parameters"][0]
               + t["dump_projections"][0])
@@ -2759,16 +2752,16 @@ def phase_raw_capture(e1: dict, device="cuda") -> None:
     for i, dev in enumerate((device, "cpu")):
         r, drive = write_kitti_download(os.path.join(root, f"kitti_{i}"))
         city = os.path.join(ki.reorganize_kitti_360(r), drive)
-        ext.extrude_rows.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         gd.process_city("KITTI_360", city, vol_shape=KITTI_VOL, device=dev)
         n_cat = len(dg.load_projections(os.path.join(city, "Projection")))
         n_views = len(os.listdir(os.path.join(city, "Points")))
         log(f"KITTI-360 drive on {dev}: {n_views} views of {n_cat} "
             f"categories at {KITTI_VOL} in {time.perf_counter() - t0:.1f} "
-            f"s; E1 launches {ext.extrude_rows.launches}")
+            f"s; E1 pass launches {launched('extrude')}")
         if dev != "cpu":
-            check(ext.extrude_rows.launches == n_views * n_cat
+            check(launched("extrude") == 2 * n_views * n_cat
                   and n_views == 2 and n_cat == 2,
                   "the KITTI-360 views did not launch E1 once a category "
                   "a view")
@@ -2935,14 +2928,11 @@ def phase_cli_inference(city: str, ckpt_dirs: dict, device="cuda",
                                    **dict(zip(("radius", "altitude"),
                                               orbit)))
     lut = get_style_lut(centers, models["BLDG"].cfg.z_dim, seed=0)
-    blend.blend_forward.launches = 0
-    vis.raycast.launches = 0
-    hash_grid.hash_encode_fwd.launches = 0
+    reset_launches()
     frames = pipe.render_trajectory(projections, centers, poses,
                                     style_lut=lut)
-    launches = {"blend_fwd": blend.blend_forward.launches,
-                "raycast": vis.raycast.launches,
-                "hash_encode_fwd": hash_grid.hash_encode_fwd.launches}
+    launches = {name: launched(name)
+                for name in ("blend_fwd", "raycast", "hash_encode_fwd")}
     for name, count in launches.items():
         check(count >= CLI_FRAMES,
               f"kernel {name} was not launched on every in-process frame")
@@ -3411,7 +3401,7 @@ def phase_small_surface(device, projections):
 
     from gaussiancity_tpu_torch.config import PTv3Config
     from gaussiancity_tpu_torch.models import ptv3
-    from gaussiancity_tpu_torch.ops.rasterizer import blend, debug
+    from gaussiancity_tpu_torch.ops.rasterizer import debug
     from gaussiancity_tpu_torch.ops.rasterizer import rasterize
     from gaussiancity_tpu_torch.ops.rasterizer.naive import naive_render
     from gaussiancity_tpu_torch.testing import TINY_PTV3
@@ -3485,7 +3475,7 @@ def phase_small_surface(device, projections):
 
     cam, scene = small_scene(device)
     rc = small_config().rasterizer
-    n0 = blend.blend_forward.launches
+    n0 = launched("blend_fwd")
     out = rasterize(*scene, cam, rc)
     img, final_T = naive_render(*scene, cam, rc)
     torch.cuda.synchronize()
@@ -3493,7 +3483,7 @@ def phase_small_surface(device, projections):
               float((out.final_T - final_T).abs().max()))
     log(f"naive_render vs rasterize (K1) on the card: max|d| {err:.3e}, "
         f"image std {float(img.std()):.3f}")
-    check(blend.blend_forward.launches == n0 + 1,
+    check(launched("blend_fwd") == n0 + 1,
           "rasterize did not launch K1")
     check(err <= K1_TOL and float(img.std()) > 0.01,
           "naive_render disagrees with rasterize on the card")
@@ -3995,8 +3985,6 @@ def ddp_full_rank(rank, world, device, kind, n_warm, n_timed):
     step."""
     import torch
 
-    from gaussiancity_tpu_torch.ops import hash_grid, hash_grid_bwd
-    from gaussiancity_tpu_torch.ops.rasterizer import blend
     from gaussiancity_tpu_torch.training.checkpoint import state_digest
     from gaussiancity_tpu_torch.training.step import (
         Trainer, make_parallel_train_step)
@@ -4034,26 +4022,21 @@ def ddp_full_rank(rank, world, device, kind, n_warm, n_timed):
     for _ in range(n_warm):
         step(batch)
         digests.append(state_digest(trainer))
-    counters = {"blend_fwd": blend.blend_forward,
-                "blend_bwd": blend.blend_backward,
-                "segment_sum": hash_grid_bwd.segment_sum_sorted}
+    counters = ["blend_fwd", "blend_bwd", "segment_sum"]
     if kind == "REST":
-        counters.update(hash_encode_fwd=hash_grid.hash_encode_fwd,
-                        hash_encode_bwd=hash_grid.hash_encode_bwd)
-    for fn in counters.values():
-        fn.launches = 0
+        counters += ["hash_encode_fwd", "hash_encode_bwd"]
+    reset_launches()
     trainer.stage_ms.clear()
     trainer.time_stages = True
     torch.cuda.reset_peak_memory_stats(device)
     step_ms, per_step, metrics = [], [], []
     for _ in range(n_timed):
-        counts = {n: fn.launches for n, fn in counters.items()}
+        counts = {n: launched(n) for n in counters}
         t0 = time.perf_counter()
         m = step(batch)
         torch.cuda.synchronize(device)
         step_ms.append((time.perf_counter() - t0) * 1e3)
-        per_step.append({n: fn.launches - counts[n]
-                         for n, fn in counters.items()})
+        per_step.append({n: launched(n) - counts[n] for n in counters})
         metrics.append({k: float(v) for k, v in m.items()})
         digests.append(state_digest(trainer))
     trainer.time_stages = False
@@ -4143,7 +4126,6 @@ def sharded_raster_probe(rank, run, shape):
 
     from gaussiancity_tpu_torch.ops.rasterizer import blend
 
-    blend.blend_forward.launches = blend.blend_backward.launches = 0
     captured = capture_calls([(blend, "blend_forward"),
                               (blend, "blend_backward")], run)
     entries = {}
@@ -4308,8 +4290,7 @@ def sharded_frame_probe(rank, i, run, fr, pipe, n):
 
     rec = {}
     if i == n:  # the timed pass starts
-        blend.blend_forward.launches = 0
-        hash_grid.hash_encode_fwd.launches = 0
+        reset_launches()
     if i == 0:
         captured = capture_calls(
             [(blend, "blend_forward"), (hash_grid, "hash_encode_fwd")],
@@ -4331,9 +4312,8 @@ def sharded_frame_probe(rank, i, run, fr, pipe, n):
                    frame=frame_to_uint8(img),
                    counts=[int(c) for c in out[1:]])
     if i == 2 * n - 1:
-        rec["launches"] = {"blend_fwd": blend.blend_forward.launches,
-                           "hash_encode_fwd":
-                               hash_grid.hash_encode_fwd.launches}
+        rec["launches"] = {name: launched(name)
+                           for name in ("blend_fwd", "hash_encode_fwd")}
     return rec
 
 

@@ -68,6 +68,8 @@ _ARGTYPES = {
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
+# launches of each kernel's C launcher since the process started, by name
+launches: Dict[str, int] = {name: 0 for name in KERNELS}
 # per-kernel nvcc output (-Xptxas -v: registers, shared memory, spills)
 build_log: Dict[str, str] = {}
 
@@ -144,9 +146,11 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def launch(name: str, *args) -> None:
-    """Call the kernel's C launcher and raise if the launch failed."""
+    """Call the kernel's C launcher, count it in ``launches`` and raise
+    if the launch failed."""
     lib = load(name)
     code = getattr(lib, name)(*args)
+    launches[name] += 1
     if code != 0:
         msg = getattr(lib, f"{name}_error_string")(code).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "

@@ -20,7 +20,6 @@ from __future__ import annotations
 
 import logging
 import math
-import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -36,7 +35,7 @@ from gaussiancity_tpu_torch.device import resolve_device
 from gaussiancity_tpu_torch.ops import extrusion as ext
 from gaussiancity_tpu_torch.ops import visibility as vis
 from gaussiancity_tpu_torch.ops.rasterizer import rasterize_points14
-from gaussiancity_tpu_torch.utils import helpers
+from gaussiancity_tpu_torch.utils import helpers, profiling
 
 
 def get_quat_from_look_at(cam_pos: np.ndarray, look_at: np.ndarray):
@@ -127,8 +126,10 @@ def _gaussian_blur3(img: torch.Tensor, sigma: float = 2.0) -> torch.Tensor:
 def frame_to_uint8(img: torch.Tensor) -> np.ndarray:
     """[-1, 1] float frame -> uint8 numpy (truncating, as the JAX
     package's cast does)."""
-    return (torch.clamp(img / 2 + 0.5, 0, 1) * 255).to(
-        torch.uint8).cpu().numpy()
+    with profiling.span("frame.readback"):
+        u8 = (torch.clamp(img / 2 + 0.5, 0, 1) * 255).to(torch.uint8)
+        with profiling.span("sync.frame"):
+            return u8.cpu().numpy()
 
 
 def write_video(path: str, frames: List[np.ndarray], fps: int = 4) -> None:
@@ -153,8 +154,9 @@ class InferencePipeline:
     ``models`` maps a class name ("REST", "BLDG", "CAR") to a generator
     module with its weights.  ``class_budgets`` (name -> point budget)
     selects the compact per-class path.  ``stage_ms`` collects per-stage
-    wall times (device synchronised at each stage boundary; on the compact
-    path ``generator`` is split per model into ``generator_<name>``) and
+    wall times (device synchronised at each stage boundary,
+    ``utils.profiling.Stages``; on the compact path ``generator`` is split
+    per model into ``generator_<name>``) and
     ``frame_stats`` the visible count (per model ``n_<name>`` on the
     compact path) and rasterizer counters of every frame rendered."""
 
@@ -175,22 +177,9 @@ class InferencePipeline:
         self.camera = CameraModel(
             np.asarray(self.ds.cam_k).reshape(3, 3), self.ds.sensor_size)
         self._pts_fp = None
-        self.stage_ms: Dict[str, List[float]] = {}
+        self.stages = profiling.Stages(self.device, timed=True)
+        self.stage_ms: Dict[str, List[float]] = self.stages.ms
         self.frame_stats: List[Dict[str, int]] = []
-
-    # ------------------------------------------------------------------
-    # timing
-    # ------------------------------------------------------------------
-
-    def _now(self) -> float:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return time.perf_counter()
-
-    def _record(self, stage: str, t0: float) -> float:
-        t1 = self._now()
-        self.stage_ms.setdefault(stage, []).append((t1 - t0) * 1e3)
-        return t1
 
     # ------------------------------------------------------------------
     # point generation and visibility
@@ -270,7 +259,8 @@ class InferencePipeline:
             torch.as_tensor(cam_quat, **f32), cam_f=float(K[0, 0]),
             cam_c=(float(K[1, 2]), float(K[0, 2])), img_dims=(H, W),
             offsets=self._offsets, occupancy=self._occ)
-        vp_idx = torch.unique(vp_map[vp_map >= 0]).cpu().numpy()
+        with profiling.span("sync.visible_ids"):
+            vp_idx = torch.unique(vp_map[vp_map >= 0]).cpu().numpy()
         return points[vp_idx], ins_map == 1  # ROAD class id
 
     def normalize_points(self, pts: np.ndarray, centers) -> np.ndarray:
@@ -395,63 +385,74 @@ class InferencePipeline:
                     ) -> Tuple[torch.Tensor, int]:
         """One frame: returns (float frame [H, W, 3] in [-1, 1] before the
         uint8 cast, visible points fed to the generators)."""
+        with profiling.step_annotation("frame", pose["id"]):
+            return self._render_pose(points_all, centers, proj_hf, proj_seg,
+                                     style_lut, pose)
+
+    def _render_pose(self, points_all, centers, proj_hf, proj_seg,
+                     style_lut, pose):
         cam_pos = np.array([pose["tx"], pose["ty"], pose["tz"]], np.float32)
         cam_quat = np.array([pose["qx"], pose["qy"], pose["qz"],
                              pose["qw"]], np.float32)
-        t = self._now()
-        vis_pts, road = self.visible_points(points_all, cam_pos, cam_quat)
-        t = self._record("raycast", t)
-        pts9 = self.normalize_points(vis_pts, centers)
-        parts = []
-        if self.class_budgets:
-            masks = self.host_class_split(pts9)
-            for name in self.models:
-                budget = self.class_budgets.get(name, self.max_points)
-                rows, n_drop = select_nearest_rows(
-                    pts9[masks[name]], cam_pos, budget)
+        stage = self.stages
+        stage.restart()
+        with stage("raycast"):
+            vis_pts, road = self.visible_points(points_all, cam_pos,
+                                                cam_quat)
+        with stage("points"):
+            pts9 = self.normalize_points(vis_pts, centers)
+            parts = []
+            if self.class_budgets:
+                masks = self.host_class_split(pts9)
+                for name in self.models:
+                    budget = self.class_budgets.get(name, self.max_points)
+                    rows, n_drop = select_nearest_rows(
+                        pts9[masks[name]], cam_pos, budget)
+                    if n_drop:
+                        logging.warning(
+                            "frame %s: %s bucket over budget, dropped %d "
+                            "farthest of %d points", pose["id"], name,
+                            n_drop, n_drop + budget)
+                    parts.append((name, rows))
+            else:
+                rows, n_drop = select_nearest_rows(pts9, cam_pos,
+                                                   self.max_points)
                 if n_drop:
                     logging.warning(
-                        "frame %s: %s bucket over budget, dropped %d "
-                        "farthest of %d points", pose["id"], name, n_drop,
-                        n_drop + budget)
-                parts.append((name, rows))
-        else:
-            rows, n_drop = select_nearest_rows(pts9, cam_pos,
-                                               self.max_points)
-            if n_drop:
-                logging.warning(
-                    "frame %s: point budget exceeded, dropped %d farthest "
-                    "of %d points", pose["id"], n_drop, len(pts9))
-            parts.append((None, rows))
-        dev_parts = [(name, torch.as_tensor(rows, dtype=torch.float32,
-                                            device=self.device))
-                     for name, rows in parts]
-        n = int(sum(len(rows) for _, rows in parts))
-        t = self._record("points", t)
-        t_gen, gs = t, []
-        for name, p in dev_parts:
-            if name is None:
-                gs.append(self.predict_attrs(p, proj_hf, proj_seg, None,
-                                             style_lut))
-                continue
-            gs.append(self.predict_attrs_single(name, p, proj_hf, proj_seg,
-                                                None, style_lut))
-            t = self._record(f"generator_{name}", t)
-        gs = torch.cat(gs)
-        t = self._record("generator", t_gen)
+                        "frame %s: point budget exceeded, dropped %d "
+                        "farthest of %d points", pose["id"], n_drop,
+                        len(pts9))
+                parts.append((None, rows))
+            dev_parts = [(name, torch.as_tensor(rows, dtype=torch.float32,
+                                                device=self.device))
+                         for name, rows in parts]
+            n = int(sum(len(rows) for _, rows in parts))
+        with stage("generator"):
+            gs = []
+            for name, p in dev_parts:
+                if name is None:
+                    gs.append(self.predict_attrs(p, proj_hf, proj_seg, None,
+                                                 style_lut))
+                    continue
+                with stage(f"generator_{name}"):
+                    gs.append(self.predict_attrs_single(
+                        name, p, proj_hf, proj_seg, None, style_lut))
+            gs = torch.cat(gs)
         f32 = dict(dtype=torch.float32, device=self.device)
-        img = self.raster_view(gs, torch.as_tensor(cam_pos, **f32),
-                               torch.as_tensor(cam_quat, **f32))
-        t = self._record("rasterize", t)
-        img = self.road_blur(img, road)
-        self._record("blur", t)
+        with stage("rasterize"):
+            img = self.raster_view(gs, torch.as_tensor(cam_pos, **f32),
+                                   torch.as_tensor(cam_quat, **f32))
+        with stage("blur"):
+            img = self.road_blur(img, road)
         out = self.last_render
+        with profiling.span("sync.frame_counters"):
+            counters = {"n_dropped_pairs": int(out.n_dropped_pairs),
+                        "n_truncated": int(out.n_truncated),
+                        "n_grad_truncated": int(out.n_grad_truncated)}
         self.frame_stats.append({
             "n_visible": n,
             **{f"n_{name}": len(rows) for name, rows in parts if name},
-            "n_dropped_pairs": int(out.n_dropped_pairs),
-            "n_truncated": int(out.n_truncated),
-            "n_grad_truncated": int(out.n_grad_truncated)})
+            **counters})
         return img, n
 
     def prepare(self, projections, centers, style_lut=None, water_z=0):
@@ -460,22 +461,24 @@ class InferencePipeline:
         z_dim = self.cfg.network.z_dim or 1
         if style_lut is None:
             style_lut = get_style_lut(centers, z_dim)
-        t = self._now()
-        points_all = self.build_points(projections, water_z)
-        t = self._record("extrude", t)
-        self.build_volume(points_all)
-        self._record("volume", t)
-        logging.info("extruded %d points", len(points_all))
-        f32 = dict(dtype=torch.float32, device=self.device)
-        proj_hf = torch.as_tensor(
-            np.asarray(projections["REST"]["TD_HF"], np.float32),
-            **f32)[..., None]
-        seg = np.asarray(projections["REST"]["SEG"])
-        proj_seg = torch.as_tensor(np.stack(
-            [(seg == i) for i in range(self.ds.n_classes)], -1
-        ).astype(np.float32), **f32)
-        return (points_all, proj_hf, proj_seg,
-                torch.as_tensor(np.asarray(style_lut, np.float32), **f32))
+        with profiling.span("prepare"):
+            self.stages.restart()
+            with self.stages("extrude"):
+                points_all = self.build_points(projections, water_z)
+            with self.stages("volume"):
+                self.build_volume(points_all)
+            logging.info("extruded %d points", len(points_all))
+            f32 = dict(dtype=torch.float32, device=self.device)
+            proj_hf = torch.as_tensor(
+                np.asarray(projections["REST"]["TD_HF"], np.float32),
+                **f32)[..., None]
+            seg = np.asarray(projections["REST"]["SEG"])
+            proj_seg = torch.as_tensor(np.stack(
+                [(seg == i) for i in range(self.ds.n_classes)], -1
+            ).astype(np.float32), **f32)
+            return (points_all, proj_hf, proj_seg,
+                    torch.as_tensor(np.asarray(style_lut, np.float32),
+                                    **f32))
 
     @torch.inference_mode()
     def render_trajectory(self, projections, centers,
@@ -492,9 +495,9 @@ class InferencePipeline:
         for pose in camera_poses:
             img, n = self.render_pose(points_all, centers, proj_hf,
                                       proj_seg, lut, pose)
-            t = self._now()
-            frames.append(frame_to_uint8(img))
-            self._record("readback", t)
+            self.stages.restart()
+            with self.stages("readback"):
+                frames.append(frame_to_uint8(img))
             logging.info("frame %s: %d visible points", pose["id"], n)
         if video_path:
             write_video(video_path, frames, fps)

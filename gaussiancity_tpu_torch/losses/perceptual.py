@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from gaussiancity_tpu_torch.models.layers import conv2d
+from gaussiancity_tpu_torch.utils import profiling
 
 _VGG19_STAGES = ((64, 2), (128, 2), (256, 4), (512, 4), (512, 4))
 _VGG16_STAGES = ((64, 2), (128, 2), (256, 3), (512, 3), (512, 3))
@@ -74,17 +75,18 @@ class VGGFeatures(nn.Module):
                     m.bias.uniform_(-bound, bound, generator=generator)
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        out = {}
-        for name, pool in self.plan:
-            conv = getattr(self, name)
-            x = F.relu(conv2d(x, conv.weight, conv.bias, self.compute_dtype,
-                              1, 1))
-            relu = "relu" + name[4:]
-            if relu in self.wanted:
-                out[relu] = x
-            if pool and len(out) < len(self.wanted):
-                x = F.max_pool2d(x, 2, 2)
-        return out
+        with profiling.span("vgg"):
+            out = {}
+            for name, pool in self.plan:
+                conv = getattr(self, name)
+                x = F.relu(conv2d(x, conv.weight, conv.bias,
+                                  self.compute_dtype, 1, 1))
+                relu = "relu" + name[4:]
+                if relu in self.wanted:
+                    out[relu] = x
+                if pool and len(out) < len(self.wanted):
+                    x = F.max_pool2d(x, 2, 2)
+            return out
 
 
 def normalize_imagenet(x: torch.Tensor) -> torch.Tensor:

@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from gaussiancity_tpu_torch.models.layers import conv2d, leaky_relu
+from gaussiancity_tpu_torch.utils import profiling
 
 SN_EPS = 1e-12
 
@@ -179,19 +180,20 @@ class Discriminator(nn.Module):
 
     def forward(self, images: torch.Tensor, seg_maps: torch.Tensor,
                 masks: torch.Tensor) -> Dict[str, torch.Tensor]:
-        x = (images * masks).permute(0, 3, 1, 2)
-        f11 = self.enc1(x)
-        f12 = self.enc2(f11)
-        f13 = self.enc3(f12)
-        f14 = self.enc4(f13)
-        f15 = self.enc5(f14)
-        f25 = self.lat5(f15)
-        f24 = _up2x(f25, f14.shape[-2:]) + self.lat4(f14)
-        f23 = _up2x(f24, f13.shape[-2:]) + self.lat3(f13)
-        f22 = _up2x(f23, f12.shape[-2:]) + self.lat2(f12)
-        f32 = self.final2(f22)
-        pred = leaky_relu(self.output(f32.float()))
-        label = smooth_interp((seg_maps * masks).permute(0, 3, 1, 2),
-                              f32.shape[-2:])
-        return {"pred": pred.permute(0, 2, 3, 1),
-                "label": label.permute(0, 2, 3, 1)}
+        with profiling.span("disc"):
+            x = (images * masks).permute(0, 3, 1, 2)
+            f11 = self.enc1(x)
+            f12 = self.enc2(f11)
+            f13 = self.enc3(f12)
+            f14 = self.enc4(f13)
+            f15 = self.enc5(f14)
+            f25 = self.lat5(f15)
+            f24 = _up2x(f25, f14.shape[-2:]) + self.lat4(f14)
+            f23 = _up2x(f24, f13.shape[-2:]) + self.lat3(f13)
+            f22 = _up2x(f23, f12.shape[-2:]) + self.lat2(f12)
+            f32 = self.final2(f22)
+            pred = leaky_relu(self.output(f32.float()))
+            label = smooth_interp((seg_maps * masks).permute(0, 3, 1, 2),
+                                  f32.shape[-2:])
+            return {"pred": pred.permute(0, 2, 3, 1),
+                    "label": label.permute(0, 2, 3, 1)}

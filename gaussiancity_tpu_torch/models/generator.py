@@ -37,6 +37,7 @@ from gaussiancity_tpu_torch.models import ptv3
 from gaussiancity_tpu_torch.models.layers import (Dense, compute_dtype,
                                                   leaky_relu)
 from gaussiancity_tpu_torch.ops.hash_grid import GridEncoder
+from gaussiancity_tpu_torch.utils import profiling
 
 
 def _reset_torch_default(module: nn.Module,
@@ -320,33 +321,34 @@ class GaussianAttrMLP(nn.Module):
         return fc(x, z) if self.z_dim is not None else fc(x)
 
     def forward(self, pt_feat, onehots, z) -> Dict[str, torch.Tensor]:
-        f = leaky_relu(self.fc_1(pt_feat) + self.fc_m_a(onehots))
-        for i in range(2, self.n_shared_layers + 1):
-            f = leaky_relu(self._layer(f"fc_{i}", f, z))
-        output = {}
-        for k in self.factors:
-            _f = f
-            for i in range(self.n_layers[k]):
-                name = f"fc_{self.n_shared_layers + 1}_{k}_{i}"
-                # upstream quirk (models/generator.py:414): without z the
-                # attribute layers re-consume the shared feature f
-                _f = leaky_relu(self._layer(
-                    name, _f if self.z_dim is not None else f, z))
-            output[k] = getattr(self, f"fc_out_{k}")(_f.float())
-        if "xyz" in self.factors:
-            output["xyz"] = ((torch.sigmoid(output["xyz"]) - 0.5)
-                             * self.factors["xyz"])
-        if "rgb" in self.factors:
-            output["rgb"] = ((torch.sigmoid(output["rgb"]) - 0.5)
-                             * self.factors["rgb"])
-        if "scale" in self.factors:
-            output["scale"] = 1 + torch.clamp(output["scale"], -1, 1) \
-                * self.factors["scale"]
-        if "opacity" in self.factors:
-            fo = self.factors["opacity"]
-            output["opacity"] = torch.sigmoid(output["opacity"]) * fo \
-                + (1 - fo)
-        return output
+        with profiling.span("attr_mlp"):
+            f = leaky_relu(self.fc_1(pt_feat) + self.fc_m_a(onehots))
+            for i in range(2, self.n_shared_layers + 1):
+                f = leaky_relu(self._layer(f"fc_{i}", f, z))
+            output = {}
+            for k in self.factors:
+                _f = f
+                for i in range(self.n_layers[k]):
+                    name = f"fc_{self.n_shared_layers + 1}_{k}_{i}"
+                    # upstream quirk (models/generator.py:414): without z the
+                    # attribute layers re-consume the shared feature f
+                    _f = leaky_relu(self._layer(
+                        name, _f if self.z_dim is not None else f, z))
+                output[k] = getattr(self, f"fc_out_{k}")(_f.float())
+            if "xyz" in self.factors:
+                output["xyz"] = ((torch.sigmoid(output["xyz"]) - 0.5)
+                                 * self.factors["xyz"])
+            if "rgb" in self.factors:
+                output["rgb"] = ((torch.sigmoid(output["rgb"]) - 0.5)
+                                 * self.factors["rgb"])
+            if "scale" in self.factors:
+                output["scale"] = 1 + torch.clamp(output["scale"], -1, 1) \
+                    * self.factors["scale"]
+            if "opacity" in self.factors:
+                fo = self.factors["opacity"]
+                output["opacity"] = torch.sigmoid(output["opacity"]) * fo \
+                    + (1 - fo)
+            return output
 
 
 class Generator(nn.Module):
@@ -414,11 +416,13 @@ class Generator(nn.Module):
                 dp_generator: Optional[torch.Generator] = None):
         B, N = rel_xyz.shape[:2]
         if self.cfg.encoder == "GLOBAL":
-            proj_feat = self.proj_encoder(proj_hf, proj_seg)
-            pt_feat = proj_feat[:, None, :].expand(B, N, -1)
+            with profiling.span("encoder"):
+                proj_feat = self.proj_encoder(proj_hf, proj_seg)
+                pt_feat = proj_feat[:, None, :].expand(B, N, -1)
         elif self.cfg.encoder == "LOCAL":
-            pt_feat = grid_sample_uv(self.proj_encoder(proj_hf, proj_seg),
-                                     proj_uv)
+            with profiling.span("encoder"):
+                pt_feat = grid_sample_uv(
+                    self.proj_encoder(proj_hf, proj_seg), proj_uv)
         else:
             pt_feat = rel_xyz.new_zeros((B, N, 0))
         pt_feat = torch.cat([pt_feat, rel_xyz], dim=-1)

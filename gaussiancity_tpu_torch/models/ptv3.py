@@ -56,6 +56,7 @@ from gaussiancity_tpu_torch.config import PTv3Config
 from gaussiancity_tpu_torch.models.layers import (Dense, LayerNormT,
                                                   matmul_f32, scalar)
 from gaussiancity_tpu_torch.ops import serialization as ser
+from gaussiancity_tpu_torch.utils import profiling
 
 # the [G, H, K, K] logits of one chunk of patches stay under this many bytes
 ATTN_CHUNK_BYTES = 256 * 1024 * 1024
@@ -701,32 +702,38 @@ class PTv3Single(nn.Module):
                                     device=feat.device)
         if feat.shape[0] == 0:
             return feat.new_zeros((0, self.out_channels))
-        state = self._serialize(coord, counts)
-        self._shuffle(state, shuffle_generator)
-        x = self.embedding_stem(feat, self._neighbors(state["grid_coord"],
-                                                      counts, 5))
-        state["feat"] = gelu(self.embedding_norm(x))
-        if cfg.enable_cpe:
-            state["nbrs"] = self._neighbors(state["grid_coord"], counts, 3)
         levels: List[Tuple[dict, torch.Tensor]] = []
         n_stages = len(cfg.enc_depths)
         for s in range(n_stages):
-            if s > 0:
-                pooled, cluster = getattr(self, f"enc{s}_down")(state)
-                levels.append((state, cluster))
-                state = pooled
-                self._shuffle(state, shuffle_generator)
-                if cfg.enable_cpe:
-                    state["nbrs"] = self._neighbors(state["grid_coord"],
-                                                    state["counts"], 3)
-            self._blocks(f"enc{s}", cfg.enc_depths[s], state, dp_generator)
+            with profiling.span(f"ptv3.enc{s}"):
+                if s == 0:  # the serialisation and the embedding
+                    state = self._serialize(coord, counts)
+                    self._shuffle(state, shuffle_generator)
+                    x = self.embedding_stem(feat, self._neighbors(
+                        state["grid_coord"], counts, 5))
+                    state["feat"] = gelu(self.embedding_norm(x))
+                    if cfg.enable_cpe:
+                        state["nbrs"] = self._neighbors(state["grid_coord"],
+                                                        counts, 3)
+                else:
+                    pooled, cluster = getattr(self, f"enc{s}_down")(state)
+                    levels.append((state, cluster))
+                    state = pooled
+                    self._shuffle(state, shuffle_generator)
+                    if cfg.enable_cpe:
+                        state["nbrs"] = self._neighbors(state["grid_coord"],
+                                                        state["counts"], 3)
+                self._blocks(f"enc{s}", cfg.enc_depths[s], state,
+                             dp_generator)
         for s in reversed(range(n_stages - 1)):
-            parent, cluster = levels[s]
-            up = getattr(self, f"dec{s}_up")(state["feat"], parent["feat"],
-                                             cluster)
-            state = dict(parent)
-            state["feat"] = up
-            self._blocks(f"dec{s}", cfg.dec_depths[s], state, dp_generator)
+            with profiling.span(f"ptv3.dec{s}"):
+                parent, cluster = levels[s]
+                up = getattr(self, f"dec{s}_up")(state["feat"],
+                                                 parent["feat"], cluster)
+                state = dict(parent)
+                state["feat"] = up
+                self._blocks(f"dec{s}", cfg.dec_depths[s], state,
+                             dp_generator)
         return state["feat"]
 
 
@@ -756,19 +763,23 @@ class PointTransformerV3(nn.Module):
                 dp_generator: Optional[torch.Generator] = None,
                 shuffle_generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
-        B, N = feat.shape[:2]
-        gens = (dp_generator, shuffle_generator)
-        if valid is None or bool(valid.all()):
-            out = self.net(feat.reshape(B * N, -1),
-                           coord.reshape(B * N, 3), *gens, counts=[N] * B)
+        with profiling.span("ptv3"):
+            B, N = feat.shape[:2]
+            gens = (dp_generator, shuffle_generator)
+            with profiling.span("sync.ptv3_pack"):
+                dense = valid is None or bool(valid.all())
+                if not dense:
+                    rows = torch.nonzero(valid.reshape(-1)).squeeze(1)
+                    counts = valid.sum(dim=1).tolist()
+            if dense:
+                out = self.net(feat.reshape(B * N, -1),
+                               coord.reshape(B * N, 3), *gens, counts=[N] * B)
+                self.overflow = self.net.overflow
+                return out.reshape(B, N, -1)
+            packed = self.net(feat.reshape(B * N, -1)[rows],
+                              coord.reshape(B * N, 3)[rows], *gens,
+                              counts=counts)
             self.overflow = self.net.overflow
+            out = packed.new_zeros((B * N, self.out_channels))
+            out[rows] = packed
             return out.reshape(B, N, -1)
-        rows = torch.nonzero(valid.reshape(-1)).squeeze(1)
-        counts = valid.sum(dim=1).tolist()
-        packed = self.net(feat.reshape(B * N, -1)[rows],
-                          coord.reshape(B * N, 3)[rows], *gens,
-                          counts=counts)
-        self.overflow = self.net.overflow
-        out = packed.new_zeros((B * N, self.out_channels))
-        out[rows] = packed
-        return out.reshape(B, N, -1)

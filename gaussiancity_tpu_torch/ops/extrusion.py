@@ -344,8 +344,8 @@ def extrude_rows(ins_map: torch.Tensor, td_hf: torch.Tensor,
     their total, pass B writes each tile's rows from its first one.
     Without ``capacity`` the output is sized by the total, read into
     pinned memory with one wait on the host; with it nothing waits (pass
-    B writes the zero padding too).  ``extrude_rows.launches`` counts one
-    a call that launches E1.  CPU maps go to the plain version."""
+    B writes the zero padding too): two counts of ``extrude`` in
+    ``_kernels.launches``.  CPU maps go to the plain version."""
     maps = (ins_map, td_hf, bu_hf, pts_map)
     _check_maps(maps)
     if not ins_map.is_cuda:
@@ -363,7 +363,6 @@ def extrude_rows(ins_map: torch.Tensor, td_hf: torch.Tensor,
                            device=dev), total
     stream = _kernels.stream_handle(dev)
     _kernels.launch("extrude", *args, None, 0, stream)
-    extrude_rows.launches += 1
     n_out = capacity
     if n_out is None:
         host = torch.empty((), dtype=torch.int64, pin_memory=True)
@@ -376,9 +375,6 @@ def extrude_rows(ins_map: torch.Tensor, td_hf: torch.Tensor,
     if n_out:
         _kernels.launch("extrude", *args, out.data_ptr(), n_out, stream)
     return out, total
-
-
-extrude_rows.launches = 0
 
 
 def extrude_points(ins_map: torch.Tensor, td_hf: torch.Tensor,

@@ -37,6 +37,7 @@ from torch.autograd.function import once_differentiable
 
 from gaussiancity_tpu_torch import _kernels
 from gaussiancity_tpu_torch.ops import hash_grid_bwd
+from gaussiancity_tpu_torch.utils import profiling
 
 _PRIMES = (1, 2654435761, 805459861, 3674653429, 2097192037, 1434869437,
            2165219737)
@@ -286,11 +287,7 @@ def hash_encode_fwd(inputs: torch.Tensor, embeddings: torch.Tensor,
                         n_levels, R_max, C, float(bound),
                         float(np.float32(2.0 * bound)), out.data_ptr(),
                         _kernels.stream_handle(inputs.device))
-        hash_encode_fwd.launches += 1
     return out
-
-
-hash_encode_fwd.launches = 0
 
 
 def hash_encode_bwd_plain(inputs: torch.Tensor, embeddings: torch.Tensor,
@@ -401,15 +398,11 @@ def hash_encode_bwd(inputs: torch.Tensor, embeddings: torch.Tensor,
                         g.data_ptr(), N, D, n_levels, R_max, C, float(bound),
                         float(np.float32(2.0 * bound)), *outs,
                         _kernels.stream_handle(dev))
-        hash_encode_bwd.launches += 1
     if need_inputs:
         # the levels' contributions, each already over 2 * bound and 0 for
         # out-of-bound points, summed in one deterministic reduction
         d_inputs = part.sum(dim=0)
     return keys, weights, g_l, d_inputs
-
-
-hash_encode_bwd.launches = 0
 
 
 class _HashEncode(torch.autograd.Function):
@@ -488,8 +481,9 @@ class GridEncoder(nn.Module):
     def forward(self, inputs: torch.Tensor,
                 bound: float = 1.0) -> torch.Tensor:
         prefix = inputs.shape[:-1]
-        out = hash_encode(
-            inputs.reshape(-1, self.in_channels), self.embeddings,
-            self.in_channels, self.n_levels, self.base_resolution,
-            self.desired_resolution, self.log2_hashmap_size, bound)
+        with profiling.span("hash_grid"):
+            out = hash_encode(
+                inputs.reshape(-1, self.in_channels), self.embeddings,
+                self.in_channels, self.n_levels, self.base_resolution,
+                self.desired_resolution, self.log2_hashmap_size, bound)
         return out.reshape(*prefix, self.output_dim)

@@ -78,11 +78,7 @@ def segment_sum_sorted(keys: torch.Tensor, rows: torch.Tensor,
         _kernels.launch("segment_sum", keys.data_ptr(), rows.data_ptr(), L,
                         M, C, n_rows, out.data_ptr(),
                         _kernels.stream_handle(rows.device))
-        segment_sum_sorted.launches += 1
     return out
-
-
-segment_sum_sorted.launches = 0
 
 
 def reduce_rows(keys: torch.Tensor, rows: torch.Tensor,

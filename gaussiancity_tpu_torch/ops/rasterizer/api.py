@@ -21,6 +21,7 @@ from torch.autograd.function import once_differentiable
 from gaussiancity_tpu_torch.camera import CameraModel, CameraParams
 from gaussiancity_tpu_torch.config import RasterizerConfig
 from gaussiancity_tpu_torch.ops.rasterizer import binning, blend, preprocess
+from gaussiancity_tpu_torch.utils import profiling
 
 
 class RenderOutput(NamedTuple):
@@ -69,11 +70,12 @@ class _BlendFunction(torch.autograd.Function):
         bg_dot_g = bg[0] * g_image[0] + bg[1] * g_image[1] + bg[2] * g_image[2]
         if g_T is not None:
             bg_dot_g = bg_dot_g + g_T
-        grads = blend.blend_backward(
-            attrs, gauss_index, k_hi, ctx.origin, g_image,
-            bg_dot_g.contiguous(), final_T, n_contrib, ctx.consts)
-        rows = blend.reduce_slot_grads(grads, gauss_index, k_hi,
-                                       attrs.shape[0], *ctx.grad_cfg)
+        with profiling.span("raster.blend"):
+            grads = blend.blend_backward(
+                attrs, gauss_index, k_hi, ctx.origin, g_image,
+                bg_dot_g.contiguous(), final_T, n_contrib, ctx.consts)
+            rows = blend.reduce_slot_grads(grads, gauss_index, k_hi,
+                                           attrs.shape[0], *ctx.grad_cfg)
         d_attrs = torch.cat([rows, rows.new_zeros((rows.shape[0], 1))], 1)
         return (d_attrs, d_bg) + (None,) * 7
 
@@ -99,18 +101,18 @@ def rasterize(means3d: torch.Tensor, opacities: torch.Tensor,
     dev = means3d.device
     if (colors is None) == (shs is None):
         raise ValueError("exactly one of colors and shs must be provided")
-    if colors is None:
-        from gaussiancity_tpu_torch.ops.rasterizer import sh as _sh
+    with profiling.span("raster.preprocess"):
+        if colors is None:
+            from gaussiancity_tpu_torch.ops.rasterizer import sh as _sh
 
-        colors = _sh.eval_sh_colors(shs, means3d, cam.cam_pos, sh_degree)
-    if valid is None:
-        valid = torch.ones((N,), dtype=torch.bool, device=dev)
-    if bg is None:
-        bg = torch.zeros((3,), dtype=torch.float32, device=dev)
-
-    prep = preprocess.preprocess(
-        means3d, opacities, scales, quats, colors, valid, cam,
-        scale_modifier=scale_modifier, near_z=cfg.near_z)
+            colors = _sh.eval_sh_colors(shs, means3d, cam.cam_pos, sh_degree)
+        if valid is None:
+            valid = torch.ones((N,), dtype=torch.bool, device=dev)
+        if bg is None:
+            bg = torch.zeros((3,), dtype=torch.float32, device=dev)
+        prep = preprocess.preprocess(
+            means3d, opacities, scales, quats, colors, valid, cam,
+            scale_modifier=scale_modifier, near_z=cfg.near_z)
     return rasterize_preprocessed(prep, bg, cam.img_h, cam.img_w, cfg,
                                   window)
 
@@ -132,10 +134,11 @@ def rasterize_preprocessed(prep: preprocess.Preprocessed, bg: torch.Tensor,
         bin_prep = prep._replace(mx=prep.mx - origin[0],
                                  my=prep.my - origin[1])
         img_w, img_h = int(wc), int(hc)
-    bins = binning.bin_gaussians(
-        bin_prep, img_h, img_w, tile_h=cfg.tile_h, tile_w=cfg.tile_w,
-        tile_capacity=cfg.tile_capacity, gate16=cfg.ref_tile16_gate,
-        gate_origin=origin if window is not None else None)
+    with profiling.span("raster.binning"):
+        bins = binning.bin_gaussians(
+            bin_prep, img_h, img_w, tile_h=cfg.tile_h, tile_w=cfg.tile_w,
+            tile_capacity=cfg.tile_capacity, gate16=cfg.ref_tile16_gate,
+            gate_origin=origin if window is not None else None)
     _, n_tx = binning.tile_grid(img_h, img_w, cfg.tile_h, cfg.tile_w)
     consts = blend.BlendConsts(
         tile_h=cfg.tile_h, tile_w=cfg.tile_w, n_tx=n_tx,
@@ -143,9 +146,10 @@ def rasterize_preprocessed(prep: preprocess.Preprocessed, bg: torch.Tensor,
         t_eps=cfg.transmittance_eps, ref_gate=cfg.ref_tile16_gate)
     grad_cfg = (cfg.grad_capacity, cfg.grad_budget,
                 cfg.page or blend.DEFAULT_PAGE)
-    image, final_T, _, n_grad_truncated = _BlendFunction.apply(
-        prep.attrs10(), bg.float().contiguous(), bins.gauss_index,
-        bins.counts, origin, img_h, img_w, consts, grad_cfg)
+    with profiling.span("raster.blend"):
+        image, final_T, _, n_grad_truncated = _BlendFunction.apply(
+            prep.attrs10(), bg.float().contiguous(), bins.gauss_index,
+            bins.counts, origin, img_h, img_w, consts, grad_cfg)
     return RenderOutput(
         image=image, final_T=final_T, radii=prep.radius,
         n_dropped_pairs=bins.n_dropped_pairs, n_truncated=bins.n_truncated,

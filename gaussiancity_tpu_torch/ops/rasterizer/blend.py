@@ -249,11 +249,7 @@ def blend_forward(attrs: torch.Tensor, gauss_index: torch.Tensor,
             consts.alpha_min, consts.alpha_max, consts.t_eps,
             scratch.data_ptr(), image.data_ptr(), final_T.data_ptr(),
             n_contrib.data_ptr(), _kernels.stream_handle(dev))
-        blend_forward.launches += 1
     return image, final_T, n_contrib
-
-
-blend_forward.launches = 0
 
 
 def tile_k_hi(counts: torch.Tensor, n_contrib: torch.Tensor,
@@ -417,11 +413,7 @@ def blend_backward(attrs: torch.Tensor, gauss_index: torch.Tensor,
             g_out.data_ptr(), bg_dot_g.data_ptr(), final_T.data_ptr(),
             n_contrib.data_ptr(), scratch.data_ptr(), grads.data_ptr(),
             _kernels.stream_handle(dev))
-        blend_backward.launches += 1
     return grads
-
-
-blend_backward.launches = 0
 
 
 def reduce_slot_grads(grads: torch.Tensor, gauss_index: torch.Tensor,

@@ -292,7 +292,6 @@ def _launch_raycast(volume, rays, cam_f, cam_c, img_dims, occupancy,
         float(cam_f), float(occupancy.ztop), voxel_id.data_ptr(),
         depth.data_ptr(), tile_counter.data_ptr(),
         0 if work is None else work.data_ptr(), _kernels.stream_handle(dev))
-    raycast.launches += 1
     return voxel_id, depth
 
 
@@ -315,9 +314,6 @@ def raycast(volume: torch.Tensor, rays: torch.Tensor, cam_f: float,
         return raycast_plain(volume, rays, cam_f, cam_c, img_dims,
                              occupancy.ztop)[:2]
     return _launch_raycast(volume, rays, cam_f, cam_c, img_dims, occupancy)
-
-
-raycast.launches = 0
 
 
 def raycast_work(volume: torch.Tensor, rays: torch.Tensor, cam_f: float,

@@ -53,7 +53,6 @@ a rank, each with B samples of its own.
 from __future__ import annotations
 
 import contextlib
-import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -70,7 +69,7 @@ from gaussiancity_tpu_torch.models.discriminator import Discriminator
 from gaussiancity_tpu_torch.models.generator import Generator
 from gaussiancity_tpu_torch.models.layers import compute_dtype
 from gaussiancity_tpu_torch.ops.rasterizer import rasterize_points14
-from gaussiancity_tpu_torch.utils import helpers
+from gaussiancity_tpu_torch.utils import helpers, profiling
 
 @contextlib.contextmanager
 def _frozen(module: torch.nn.Module):
@@ -89,7 +88,8 @@ class Trainer:
     the step count, on ``device`` (the card unless the caller asks for the
     CPU).  Weights are drawn from ``torch.Generator().manual_seed(seed)``;
     ``stage_ms`` collects per-stage wall times when ``time_stages`` is set
-    (the device is synchronised at each stage boundary)."""
+    (the device is synchronised at each stage boundary;
+    ``utils.profiling.Stages``)."""
 
     def __init__(self, cfg: Config, device=None, seed: int = 0):
         self.cfg = cfg
@@ -133,23 +133,16 @@ class Trainer:
                                        lr=0.0, **adam)
                       if self.use_disc else None)
         self.step = 0
-        self.time_stages = False
-        self.stage_ms: Dict[str, List[float]] = {}
+        self.stages = profiling.Stages(self.device)
+        self.stage_ms: Dict[str, List[float]] = self.stages.ms
 
-    # ------------------------------------------------------------------
-    # timing
-    # ------------------------------------------------------------------
+    @property
+    def time_stages(self) -> bool:
+        return self.stages.timed
 
-    def _now(self) -> float:
-        if self.time_stages and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return time.perf_counter()
-
-    def _record(self, stage: str, t0: float) -> float:
-        t1 = self._now()
-        if self.time_stages:
-            self.stage_ms.setdefault(stage, []).append((t1 - t0) * 1e3)
-        return t1
+    @time_stages.setter
+    def time_stages(self, on: bool) -> None:
+        self.stages.timed = bool(on)
 
     # ------------------------------------------------------------------
     # forward helpers
@@ -197,45 +190,49 @@ class Trainer:
         crop window with its camera -> flips.  Returns ([B, Hc, Wc, 3]
         NHWC, the rasterizer counters summed over the samples and PTv3's
         overflow count, 0 without PTv3)."""
-        t0 = self._now()
-        attrs = self.generator(
-            feats["proj_uv"], feats["rel_xyz"], None, feats["onehots"],
-            feats["z"], batch.get("proj_hf"), batch.get("proj_seg"),
-            feats["pts_mask"], dp_generator=dp_generator)
-        overflow = (self.generator.pt_net.overflow
-                    if self.cfg.network.ptv3.enabled else
-                    torch.zeros((), dtype=torch.int64, device=self.device))
-        gs_pts = helpers.get_gaussian_points(feats["abs_xyz"],
-                                             feats["scales3"], attrs)
-        t0 = self._record("generator", t0)
+        self.stages.restart()
+        with self.stages("generator"):
+            attrs = self.generator(
+                feats["proj_uv"], feats["rel_xyz"], None, feats["onehots"],
+                feats["z"], batch.get("proj_hf"), batch.get("proj_seg"),
+                feats["pts_mask"], dp_generator=dp_generator)
+            overflow = (self.generator.pt_net.overflow
+                        if self.cfg.network.ptv3.enabled else
+                        torch.zeros((), dtype=torch.int64,
+                                    device=self.device))
+            gs_pts = helpers.get_gaussian_points(feats["abs_xyz"],
+                                                 feats["scales3"], attrs)
         # render only the crop window; crp_xy addresses the flipped image
         Wc, Hc = crop_size or self.train_crop_size
         W, H = self.camera.sensor_size
         mask = feats["pts_mask"]
         imgs, outs = [], []
-        for b in range(gs_pts.shape[0]):
-            cam = self.camera.params_f32(batch["cam_pos"][b],
-                                         batch["cam_quat"][b])
-            x, y = (int(v) for v in batch["crp_xy"][b].tolist())
-            x, y = min(max(x, 0), W - Wc), min(max(y, 0), H - Hc)
-            xw = W - x - Wc if self.flip_lr else x
-            yw = H - y - Hc if self.flip_ud else y
-            out = rasterize_points14(
-                gs_pts[b], cam, self.cfg.rasterizer,
-                valid=mask[b] if mask is not None else None,
-                window=(xw, yw, Wc, Hc))
-            img = out.image
-            if self.flip_lr:
-                img = img.flip(-1)
-            if self.flip_ud:
-                img = img.flip(-2)
-            imgs.append(img)
-            outs.append(out)
-        diag = {"RasterDroppedPairs": sum(o.n_dropped_pairs for o in outs),
-                "RasterTruncated": sum(o.n_truncated for o in outs),
-                "RasterGradTruncated": sum(o.n_grad_truncated for o in outs),
-                "PTv3PoolOverflow": overflow}
-        self._record("render", t0)
+        with self.stages("render"):
+            for b in range(gs_pts.shape[0]):
+                cam = self.camera.params_f32(batch["cam_pos"][b],
+                                             batch["cam_quat"][b])
+                with profiling.span("sync.crop_origin"):
+                    x, y = (int(v) for v in batch["crp_xy"][b].tolist())
+                x, y = min(max(x, 0), W - Wc), min(max(y, 0), H - Hc)
+                xw = W - x - Wc if self.flip_lr else x
+                yw = H - y - Hc if self.flip_ud else y
+                out = rasterize_points14(
+                    gs_pts[b], cam, self.cfg.rasterizer,
+                    valid=mask[b] if mask is not None else None,
+                    window=(xw, yw, Wc, Hc))
+                img = out.image
+                if self.flip_lr:
+                    img = img.flip(-1)
+                if self.flip_ud:
+                    img = img.flip(-2)
+                imgs.append(img)
+                outs.append(out)
+            diag = {"RasterDroppedPairs": sum(o.n_dropped_pairs
+                                              for o in outs),
+                    "RasterTruncated": sum(o.n_truncated for o in outs),
+                    "RasterGradTruncated": sum(o.n_grad_truncated
+                                               for o in outs),
+                    "PTv3PoolOverflow": overflow}
         # an NHWC view of [B, 3, Hc, Wc] memory: D and VGG permute it back
         # to contiguous NCHW, and their convolutions see that layout
         return torch.stack(imgs).permute(0, 2, 3, 1), diag
@@ -252,6 +249,10 @@ class Trainer:
         step's gradient (D's from the D loss only).  ``rng``, when given,
         serves the z table and then the drop-path masks; otherwise the
         step's own generators do (``step_generators``)."""
+        with profiling.step_annotation("train_step", self.step):
+            return self._train_step(batch, rng)
+
+    def _train_step(self, batch, rng):
         tr = self.cfg.train
         rng_z, rng_dp = ((rng, rng) if rng is not None
                          else self.step_generators(self.step))
@@ -259,47 +260,53 @@ class Trainer:
         feats = self._point_features(batch, rng_z)
         gan_w = batch["msk"][:, ::4, ::4, :]  # nearest 0.25x
         fake, metrics = self._render_fake(batch, feats, dp_generator=rng_dp)
-        t0 = self._now()
-        if self.use_disc:
-            D = self.discriminator
-            for group in self.d_opt.param_groups:
-                group["lr"] = self.d_learning_rate(self.step)
-            self.d_opt.zero_grad(set_to_none=True)
-            fake_out = D(fake.detach(), batch["seg"], batch["msk"])
-            real_out = D(batch["rgb"], batch["seg"], batch["msk"])
-            fake_l = gan_loss(fake_out["pred"], fake_out["label"], False,
-                              gan_w, dis_update=True)
-            real_l = gan_loss(real_out["pred"], real_out["label"], True,
-                              gan_w, dis_update=True)
-            loss_d = fake_l + real_l
-            loss_d.backward()
-            _zero_missing_grads(self.d_opt)
-            self.d_opt.step()
-            metrics.update(DisLoss=loss_d.detach(), GANLossFake=fake_l.detach(),
-                           GANLossReal=real_l.detach())
-        else:
-            zero = fake.new_zeros(())
-            metrics.update(DisLoss=zero, GANLossFake=zero, GANLossReal=zero)
-        t0 = self._record("d_step", t0)
+        self.stages.restart()
+        with self.stages("d_step"):
+            if self.use_disc:
+                D = self.discriminator
+                for group in self.d_opt.param_groups:
+                    group["lr"] = self.d_learning_rate(self.step)
+                self.d_opt.zero_grad(set_to_none=True)
+                fake_out = D(fake.detach(), batch["seg"], batch["msk"])
+                real_out = D(batch["rgb"], batch["seg"], batch["msk"])
+                fake_l = gan_loss(fake_out["pred"], fake_out["label"], False,
+                                  gan_w, dis_update=True)
+                real_l = gan_loss(real_out["pred"], real_out["label"], True,
+                                  gan_w, dis_update=True)
+                loss_d = fake_l + real_l
+                loss_d.backward()
+                _zero_missing_grads(self.d_opt)
+                with profiling.span("adam_d"):
+                    self.d_opt.step()
+                metrics.update(DisLoss=loss_d.detach(),
+                               GANLossFake=fake_l.detach(),
+                               GANLossReal=real_l.detach())
+            else:
+                zero = fake.new_zeros(())
+                metrics.update(DisLoss=zero, GANLossFake=zero,
+                               GANLossReal=zero)
 
-        if self.use_disc:
-            with _frozen(self.discriminator):
-                out = self.discriminator(fake, batch["seg"], batch["msk"])
-            gan = gan_loss(out["pred"], out["label"], True, gan_w,
-                           dis_update=False)
-        else:
-            gan = fake.new_zeros(())
-        l1 = masked_l1(fake, batch["rgb"], batch["msk"])
-        pl = self.ploss(fake * batch["msk"], batch["rgb"] * batch["msk"])
-        loss_g = (l1 * tr.l1_loss_factor + pl * tr.perceptual_loss_factor
-                  + gan * tr.gan_loss_factor)
-        t0 = self._record("g_loss", t0)
-        self.g_opt.zero_grad(set_to_none=True)
-        loss_g.backward()
-        t0 = self._record("backward", t0)
-        _zero_missing_grads(self.g_opt)
-        self.g_opt.step()
-        self._record("adam", t0)
+        with self.stages("g_loss"):
+            if self.use_disc:
+                with _frozen(self.discriminator):
+                    out = self.discriminator(fake, batch["seg"],
+                                             batch["msk"])
+                gan = gan_loss(out["pred"], out["label"], True, gan_w,
+                               dis_update=False)
+            else:
+                gan = fake.new_zeros(())
+            l1 = masked_l1(fake, batch["rgb"], batch["msk"])
+            pl = self.ploss(fake * batch["msk"], batch["rgb"] * batch["msk"])
+            loss_g = (l1 * tr.l1_loss_factor
+                      + pl * tr.perceptual_loss_factor
+                      + gan * tr.gan_loss_factor)
+        with self.stages("backward"):
+            self.g_opt.zero_grad(set_to_none=True)
+            loss_g.backward()
+        with self.stages("adam"):
+            _zero_missing_grads(self.g_opt)
+            with profiling.span("adam_g"):
+                self.g_opt.step()
         self.step += 1
         metrics.update(GenLoss=loss_g.detach(), L1Loss=l1.detach(),
                        PerceptualLoss=pl.detach(), GANLoss=gan.detach())
@@ -501,13 +508,16 @@ def make_parallel_train_step(trainer: Trainer, group=None):
     broadcast_state(trainer, group)
     sync = DataParallelSync(group)
     rank = dist.get_rank(group) if sync.world > 1 else None
-    held: Dict[str, float] = {}  # ms of collectives inside each stage
+    stages = trainer.stages
+    held: List[str] = []  # the stages whose collectives were timed
 
     def averaging(module: torch.nn.Module, stage: str):
         def hook(optimizer, args, kwargs):
-            t0 = trainer._now()
-            sync.gradients(module)
-            held[stage] = (trainer._now() - t0) * 1e3
+            stages.restart()
+            with stages("allreduce"):
+                sync.gradients(module)
+            if stages.timed:
+                held.append(stage)
         return hook
 
     trainer.g_opt.register_step_pre_hook(averaging(trainer.generator, "adam"))
@@ -520,14 +530,18 @@ def make_parallel_train_step(trainer: Trainer, group=None):
             rng = rank_generator(trainer, trainer.step, rank)
         held.clear()
         metrics = trainer.train_step(batch, rng)
-        t0 = trainer._now()
-        metrics = sync.state(trainer, metrics)
-        if trainer.time_stages:
-            ms = trainer.stage_ms
-            for stage, t in held.items():
-                ms[stage][-1] -= t
-            ms.setdefault("allreduce", []).append(
-                sum(held.values()) + (trainer._now() - t0) * 1e3)
+        stages.restart()
+        with stages("allreduce"):
+            metrics = sync.state(trainer, metrics)
+        if stages.timed:
+            # one allreduce entry a step: the hooks' collectives, taken
+            # out of the stages that held them, and the state's
+            ms = stages.ms["allreduce"]
+            parts = ms[-len(held) - 1:]
+            del ms[-len(held) - 1:]
+            for stage, t in zip(held, parts):
+                stages.ms[stage][-1] -= t
+            ms.append(sum(parts))
         return metrics
 
     return step

@@ -175,13 +175,7 @@ def test_profiling_trace_and_timer(tmp_path):
             with profiling.step_annotation("train", step):
                 torch.ones(64).sum()
     names = {e.key for e in prof.key_averages()}
-    assert {"train#0", "train#1"} <= names
+    assert {"gct/train#0", "gct/train#1"} <= names
     with open(tmp_path / "trace.json") as fp:
         events = json.load(fp)["traceEvents"]
-    assert any(e.get("name") == "train#1" for e in events)
-    timer = profiling.Timer()
-    for _ in range(3):
-        with timer.section("a"):
-            pass
-    summary = timer.summary()
-    assert summary["a"]["count"] == 3 and summary["a"]["total_s"] >= 0
+    assert any(e.get("name") == "gct/train#1" for e in events)
