@@ -144,9 +144,18 @@ def subm_neighbors_dense(grid_coord: torch.Tensor, valid: torch.Tensor,
     Every valid point inside the extent writes its id into its voxel;
     points that share a voxel keep the lowest id.  Returns (nb_idx [K^3, N]
     int32, found [K^3, N] bool, overflow): ``found`` says the voxel at the
-    offset holds a point, ``nb_idx`` is that point's id (clamped to N - 1
-    where none), and ``overflow`` counts the valid points outside the
-    extent (they write nothing, and their neighbours are not found)."""
+    offset holds a point, ``nb_idx`` is that point's id, and ``overflow``
+    counts the valid points outside the extent (they write nothing, and
+    their neighbours are not found).
+
+    Where a slot is not found, ``nb_idx`` names the query's own row.  The
+    gather multiplies that row by 0, so any row would do for the value;
+    the JAX package clamps to N - 1, and the port differs from it in
+    those slots alone.  The own row keeps the gather's backward fast: an
+    ``index_put_`` with accumulation sorts the indices and walks each run
+    of equal ones serially, and on a building's shell most slots are
+    unfound, so one shared row such as N - 1 would make a run of ~10^4
+    rows per offset."""
     N = grid_coord.shape[0]
     dev = grid_coord.device
     g = grid_coord.to(torch.int64)
@@ -161,7 +170,7 @@ def subm_neighbors_dense(grid_coord: torch.Tensor, valid: torch.Tensor,
     linq = (gq[..., 0] * extent + gq[..., 1]) * extent + gq[..., 2]
     j = vol[torch.where(inq, linq, torch.zeros_like(linq))]
     found = inq & (j < N) & valid[None, :]
-    return torch.clamp(j, max=max(N - 1, 0)), found, overflow
+    return torch.where(found, j, ids[None]), found, overflow
 
 
 def voxel_keys(grid_coord: torch.Tensor, valid: torch.Tensor,
@@ -180,11 +189,13 @@ def subm_neighbors(grid_coord: torch.Tensor, valid: torch.Tensor,
     package's path at ``dense_nbr_extent == 0``).  Its two-sort merge is
     TPU machinery; what it computes is a left ``searchsorted`` of every
     ``key + offset`` in the stable-sorted keys, which is what this does:
-    ``nb_idx`` is the point at that rank (clamped to N - 1), so among
-    points that share a voxel the lowest index, and ``found`` says its
-    key is the query's.  Keys live on a 2^depth lattice per axis, so an
-    offset that leaves it aliases, exactly as in the JAX package.
-    Returns (nb_idx [K^3, N] int32, found [K^3, N] bool)."""
+    ``nb_idx`` is the point at that rank, so among points that share a
+    voxel the lowest index, and ``found`` says its key is the query's.
+    Keys live on a 2^depth lattice per axis, so an offset that leaves it
+    aliases, exactly as in the JAX package.  Where a slot is not found,
+    ``nb_idx`` names the query's own row, as in ``subm_neighbors_dense``
+    and for its reason; the JAX package keeps the point at the clamped
+    rank there.  Returns (nb_idx [K^3, N] int32, found [K^3, N] bool)."""
     N = grid_coord.shape[0]
     dev = grid_coord.device
     r = kernel_size // 2
@@ -199,12 +210,20 @@ def subm_neighbors(grid_coord: torch.Tensor, valid: torch.Tensor,
     rank = torch.searchsorted(sorted_keys, q)
     nb_idx = order[rank.clamp(0, max(N - 1, 0))]
     found = (keys[nb_idx] == keys[None, :] + offs[:, None]) & valid[None, :]
-    return nb_idx.to(torch.int32), found
+    ids = torch.arange(N, dtype=nb_idx.dtype, device=dev)
+    return torch.where(found, nb_idx, ids[None]).to(torch.int32), found
 
 
 def _offset_product(feat, idx, found, w):
     """One SubMConv offset: the gathered neighbour rows (0 where none)
-    times the offset's kernel, accumulated in float32 for bf16."""
+    times the offset's kernel, accumulated in float32 for bf16.
+
+    ``idx`` names the query's own row where ``found`` is false (the JAX
+    package's maps name N - 1 or another row there; the product is the
+    same).  The gather's backward is an ``index_put_`` with accumulation,
+    which walks each run of equal indices one row at a time: own rows
+    leave runs of one or two, where one shared row would make a run as
+    long as the unfound slots."""
     nb = feat[idx.long()] * found[:, None].to(feat.dtype)
     return matmul_f32(nb, w) if feat.dtype != torch.float32 else nb @ w
 
@@ -595,7 +614,10 @@ class PTv3Single(nn.Module):
     each forward ``overflow`` holds the valid points that fell outside
     ``dense_nbr_extent``, summed over every neighbour search of the
     forward (a 0-dim int64 tensor on the features' device; 0 with the
-    sorted search, ``dense_nbr_extent`` 0)."""
+    sorted search, ``dense_nbr_extent`` 0), ``unfound`` the neighbour
+    slots not found over the forward's neighbour maps (the same kind of
+    tensor; nothing reads it on the way) and ``slots`` the maps' K^3 x M
+    slots (an int)."""
 
     def __init__(self, cfg: PTv3Config, in_channels: int,
                  grid_size: float = 0.01, serial_depth: int = 10,
@@ -608,6 +630,8 @@ class PTv3Single(nn.Module):
         self.out_channels = (cfg.dec_channels[0] if len(cfg.enc_depths) > 1
                              else cfg.enc_channels[0])
         self.overflow: Optional[torch.Tensor] = None
+        self.unfound: Optional[torch.Tensor] = None
+        self.slots = 0
         n_orders = len(cfg.order)
         enc_dp, dec_dp = drop_path_rates(cfg, drop_path)
         blk = dict(dtype=dtype, remat=cfg.remat, enable_rpe=cfg.enable_rpe)
@@ -653,8 +677,12 @@ class PTv3Single(nn.Module):
             nbs.append(nb + sl.start)
             fnds.append(found)
         if len(nbs) == 1:
-            return nbs[0], fnds[0]
-        return torch.cat(nbs, dim=1), torch.cat(fnds, dim=1)
+            nb, found = nbs[0], fnds[0]
+        else:
+            nb, found = torch.cat(nbs, dim=1), torch.cat(fnds, dim=1)
+        self.unfound = self.unfound + (~found).sum()
+        self.slots += found.numel()
+        return nb, found
 
     def _shuffle(self, state, generator: Optional[torch.Generator]) -> None:
         n_orders = state["codes"].shape[0]
@@ -700,6 +728,8 @@ class PTv3Single(nn.Module):
         counts = [feat.shape[0]] if counts is None else list(counts)
         self.overflow = torch.zeros((), dtype=torch.int64,
                                     device=feat.device)
+        self.unfound = torch.zeros_like(self.overflow)
+        self.slots = 0
         if feat.shape[0] == 0:
             return feat.new_zeros((0, self.out_channels))
         levels: List[Tuple[dict, torch.Tensor]] = []

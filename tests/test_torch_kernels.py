@@ -1048,3 +1048,49 @@ def test_extrude_padded_form_does_not_wait(dev):
     torch.cuda.synchronize()
     assert torch.equal(exact, want)
     assert waited > 0.5 * start.elapsed_time(end) / 1e3
+
+
+def _shell_grid(seed, n, side):
+    """n distinct voxels on the faces of a [side]^3 box, in random order."""
+    rng = np.random.default_rng(seed)
+    face, uv = rng.integers(0, 6, 4 * n), rng.integers(0, side, (4 * n, 2))
+    axis, rows = face // 2, np.arange(4 * n)
+    g = np.empty((4 * n, 3), np.int64)
+    g[rows, axis] = face % 2 * (side - 1)
+    g[rows, (axis + 1) % 3] = uv[:, 0]
+    g[rows, (axis + 2) % 3] = uv[:, 1]
+    g = np.unique(g, axis=0)
+    return g[rng.permutation(len(g))[:n]].astype(np.int32)
+
+
+@pytest.mark.parametrize("k", [3, 5])
+def test_subm_conv_gradients_own_row_vs_clamped_map(dev, k):
+    """The SubMConv on 16,384 shell points with the port's neighbour map
+    (unfound slots on their own row) and with the map that puts them all
+    on row N - 1: the forward equal to the bit, the gradients of the
+    features and the kernel equal but for the order of the CUDA
+    ``index_put_`` backward's sums."""
+    from gaussiancity_tpu_torch.models import ptv3
+
+    grid = torch.from_numpy(_shell_grid(k, 16384, 80)).to(dev)
+    N = grid.shape[0]
+    nb, found, _ = ptv3.subm_neighbors_dense(
+        grid, torch.ones(N, dtype=torch.bool, device=dev), k)
+    assert N == 16384 and (~found).float().mean() > 0.8
+    clamped = torch.where(found, nb, N - 1)
+    torch.manual_seed(k)
+    conv = ptv3.SubMConv(32, 32, k).to(dev)
+    feat = torch.randn(N, 32, device=dev)
+    ct = torch.randn(N, 32, device=dev)
+    got = []
+    for m in (nb, clamped):
+        x = feat.clone().requires_grad_(True)
+        conv.zero_grad()
+        y = conv(x, (m, found))
+        (y * ct).sum().backward()
+        got.append((y.detach(), x.grad, conv.kernel.grad.clone()))
+    (y, dx, dw), (y_c, dx_c, dw_c) = got
+    assert torch.equal(y, y_c)
+    torch.testing.assert_close(dx, dx_c, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(dw, dw_c, rtol=1e-6, atol=1e-6)
+    assert dx.abs().max() > 0.1 and dw.abs().max() > 0.1

@@ -214,9 +214,10 @@ def test_ptv3_option_matches_jax(change):
 class TestSortedMergeNeighbors:
     @pytest.mark.parametrize("k", [3, 5])
     def test_indices_equal_jax(self, k):
-        """``nb_idx`` and ``found`` equal to the JAX merge's everywhere,
-        invalid rows and co-voxel duplicates included (the lowest index
-        wins), and to the dense search's where found."""
+        """``found`` equal to the JAX merge's everywhere and ``nb_idx``
+        where found, invalid rows and co-voxel duplicates included (the
+        lowest index wins); elsewhere ``nb_idx`` names the query's own
+        row, as the dense search's does."""
         rng = np.random.default_rng(10 + k)
         N = 700
         grid = rng.integers(0, 14, (N, 3)).astype(np.int32)
@@ -228,13 +229,15 @@ class TestSortedMergeNeighbors:
                                       torch.from_numpy(valid), k, 10)
         assert nb.dtype == torch.int32 and fnd.dtype == torch.bool
         np.testing.assert_array_equal(fnd.numpy(), np.asarray(fnd_w))
-        np.testing.assert_array_equal(nb.numpy(), np.asarray(nb_w))
         f = fnd.numpy()
+        np.testing.assert_array_equal(nb.numpy()[f], np.asarray(nb_w)[f])
+        own = np.broadcast_to(np.arange(N), f.shape)
+        np.testing.assert_array_equal(nb.numpy()[~f], own[~f])
         assert 0.05 < f.mean() < 0.95
         nb_d, fnd_d, _ = ptv3.subm_neighbors_dense(
             torch.from_numpy(grid), torch.from_numpy(valid), k, 16)
         np.testing.assert_array_equal(fnd_d.numpy(), f)
-        np.testing.assert_array_equal(nb_d.numpy()[f], nb.numpy()[f])
+        np.testing.assert_array_equal(nb_d.numpy(), nb.numpy())
 
 
 def test_remat_changes_no_result():

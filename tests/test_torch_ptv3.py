@@ -109,6 +109,132 @@ class TestNeighbors:
         np.testing.assert_array_equal(nb.numpy()[f], np.asarray(nb_w)[f])
 
 
+def _shell(seed, n, side):
+    """n distinct voxels on the faces of a [side]^3 box, in random order:
+    a building's shell, on which most neighbour slots are unfound."""
+    rng = np.random.default_rng(seed)
+    face, uv = rng.integers(0, 6, 4 * n), rng.integers(0, side, (4 * n, 2))
+    axis, rows = face // 2, np.arange(4 * n)
+    g = np.empty((4 * n, 3), np.int64)
+    g[rows, axis] = face % 2 * (side - 1)
+    g[rows, (axis + 1) % 3] = uv[:, 0]
+    g[rows, (axis + 2) % 3] = uv[:, 1]
+    g = np.unique(g, axis=0)
+    assert len(g) >= n
+    return g[rng.permutation(len(g))[:n]].astype(np.int32)
+
+
+@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("search", ["dense", "sorted"])
+def test_unfound_slots_name_their_own_row(search, k):
+    """Found slots name the JAX package's rows; a slot not found names the
+    query's own row (the JAX package's N - 1 or clamped rank there), so
+    that no row collects the unfound slots of an offset."""
+    grid = _shell(20 + k, 1500, 30)
+    grid[:40] = grid[40:80]  # co-voxel duplicates: the lowest id wins
+    valid = np.random.default_rng(k).random(len(grid)) > 0.05
+    args = (jnp.asarray(grid), jnp.asarray(valid), k, 10)
+    targs = (torch.from_numpy(grid), torch.from_numpy(valid), k)
+    if search == "dense":
+        nb_w, fnd_w = jptv3.subm_neighbors_dense(*args, extent=32)[:2]
+        nb, fnd = ptv3.subm_neighbors_dense(*targs, extent=32)[:2]
+    else:
+        nb_w, fnd_w = jptv3.subm_neighbors(*args)
+        nb, fnd = ptv3.subm_neighbors(*targs, 10)
+    assert nb.dtype == torch.int32
+    f = np.asarray(fnd_w)
+    np.testing.assert_array_equal(fnd.numpy(), f)
+    assert 0.8 < 1 - f.mean() < 0.97
+    np.testing.assert_array_equal(nb.numpy()[f], np.asarray(nb_w)[f])
+    own = np.broadcast_to(np.arange(len(grid)), f.shape)
+    np.testing.assert_array_equal(nb.numpy()[~f], own[~f])
+    # a row is named at most twice an offset: as a neighbour, and as a
+    # query of its own whose slot is unfound (duplicates: once more)
+    runs = [np.bincount(row, minlength=len(grid)).max()
+            for row in nb.numpy()]
+    assert max(runs) <= 3
+
+
+def test_subm_conv_on_a_shell_equals_the_clamped_map():
+    """On a shell with over 80 % of the slots unfound, the port's map and
+    the JAX package's (unfound slots on row N - 1) give a SubMConv forward
+    equal to the bit, and gradients of the features and the kernel equal
+    but for the order of the feature gradients' sums."""
+    grid = _shell(3, 4000, 40)
+    N = len(grid)
+    valid = np.ones(N, bool)
+    for k in (3, 5):
+        nb_w, fnd_w, _ = jptv3.subm_neighbors_dense(
+            jnp.asarray(grid), jnp.asarray(valid), k, 10)
+        nb, fnd, _ = ptv3.subm_neighbors_dense(
+            torch.from_numpy(grid), torch.from_numpy(valid), k)
+        assert (~fnd).float().mean() > 0.8
+        clamped = torch.from_numpy(np.array(nb_w))
+        assert (clamped == N - 1).float().mean() > 0.8
+        torch.manual_seed(k)
+        conv = ptv3.SubMConv(16, 24, k)
+        feat, ct = torch.randn(N, 16), torch.randn(N, 24)
+        got = []
+        for m in (nb, clamped):
+            x = feat.clone().requires_grad_(True)
+            conv.zero_grad()
+            y = conv(x, (m, fnd))
+            (y * ct).sum().backward()
+            got.append((y.detach(), x.grad, conv.kernel.grad.clone()))
+        (y, dx, dw), (y_w, dx_w, dw_w) = got
+        assert torch.equal(y, y_w)
+        torch.testing.assert_close(dx, dx_w, rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(dw, dw_w, rtol=1e-6, atol=1e-6)
+        assert dx.abs().max() > 0.1 and dw.abs().max() > 0.1
+
+
+@pytest.mark.parametrize("extent", [256, 0], ids=["dense", "sorted"])
+def test_packed_neighbors_keep_unfound_slots_in_their_sample(extent):
+    """Two samples packed: every slot, found or not, names a row of its
+    own sample (the unfound ones their own row)."""
+    net = ptv3.PTv3Single(PTv3Config(**TINY, dense_nbr_extent=extent), 4)
+    counts = [700, 500]
+    grid = torch.from_numpy(np.concatenate([_shell(8, 700, 20),
+                                            _shell(9, 500, 20)]))
+    net.overflow = torch.zeros((), dtype=torch.int64)
+    net.unfound = torch.zeros_like(net.overflow)
+    nb, fnd = net._neighbors(grid, counts, 3)
+    assert nb.shape == fnd.shape == (27, 1200)
+    sample = (torch.arange(1200) >= 700).expand(27, -1)
+    assert torch.equal(nb >= 700, sample)
+    own = torch.arange(1200).expand(27, -1)
+    assert torch.equal(nb[~fnd], own[~fnd])
+    assert 0.5 < (~fnd).float().mean() < 1
+
+
+def test_ptv3_counts_its_unfound_slots():
+    """``unfound`` is (~found).sum() over the neighbour maps of a forward,
+    ``slots`` their sizes; both start again at the next forward."""
+    maps = []
+    net = ptv3.PTv3Single(PTv3Config(**TINY), 12).eval()
+    search = net._neighbors
+
+    def keep(*a):
+        nb, found = search(*a)
+        maps.append(found)
+        return nb, found
+
+    net._neighbors = keep
+    rng = np.random.default_rng(4)
+    coord = torch.from_numpy(rng.uniform(-0.2, 0.2, (300, 3)).astype(
+        np.float32))
+    feat = torch.randn(300, 12)
+    with torch.no_grad():
+        for _ in range(2):
+            maps.clear()
+            net(feat, coord, counts=[200, 100])
+            assert len(maps) == 1 + len(TINY["enc_depths"])
+            assert int(net.unfound) == sum(int((~f).sum()) for f in maps)
+            assert net.slots == sum(f.numel() for f in maps)
+            assert 0 < int(net.unfound) < net.slots
+            assert net.unfound.dtype == torch.int64 and net.unfound.dim() == 0
+
+
 def test_subm_conv_matches_jax():
     rng = np.random.default_rng(2)
     N, C, F = 400, 6, 10
