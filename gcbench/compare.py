@@ -21,7 +21,10 @@ window then drives, and the reference over the same steps):
   leaf's second moment by the worst leaf as above, and infinite where a
   leaf's step count differs from the reference's;
 - ``lr.D``: the learning rate D's Adam applied at each followed step, the
-  largest gap over the largest the reference applied (exact).
+  largest gap over the largest the reference applied (exact);
+- ``replicas`` (data-parallel cells, ``gcbench/kinds/train_ddp.py``): the
+  largest gap between any rank's weights and running state and rank 0's
+  after the followed steps (exact).
 
 Frame cells (a seed-drawn sample of the window's frames):
 

@@ -3,9 +3,15 @@
 (on the chip, at the cell's size): each must make ``correct`` false.
 
 ``patch(obj, name, value)`` replaces an attribute (pytest's
-``monkeypatch.setattr`` or ``Patcher.setattr``)."""
+``monkeypatch.setattr`` or ``Patcher.setattr``).  A cell whose ranks run
+in processes of their own plants there the fault that ``ENV`` names
+(``plant_named``); the benchmark's own runs never set it."""
 
 from __future__ import annotations
+
+import os
+
+ENV = "GCBENCH_FAULT"
 
 
 def unchanged(patch) -> None:
@@ -112,10 +118,82 @@ def altered_frame(patch) -> None:
     patch(pipeline, "frame_to_uint8", to_uint8)
 
 
+def _sync():
+    from gaussiancity_tpu_torch.training.step import DataParallelSync
+
+    return DataParallelSync
+
+
+def skip_average(patch) -> None:
+    """The last rank joins the gradients' all-reduce but steps with its
+    own gradients, not the average."""
+    sync = _sync()
+    orig = sync.gradients
+
+    def gradients(self, module):
+        import torch.distributed as dist
+
+        own = [p.grad.clone() for p in module.parameters()]
+        orig(self, module)
+        if dist.get_rank(self.group) == self.world - 1:
+            for p, g in zip(module.parameters(), own):
+                p.grad = g
+
+    patch(sync, "gradients", gradients)
+
+
+def sum_not_mean(patch) -> None:
+    """The gradients' all-reduce sum is not divided by the world size."""
+    sync = _sync()
+    orig = sync.gradients
+
+    def gradients(self, module):
+        orig(self, module)
+        for p in module.parameters():
+            p.grad.mul_(self.world)
+
+    patch(sync, "gradients", gradients)
+
+
+def half_batch(patch) -> None:
+    """The upper half of the ranks' gradients left out of the all-reduce,
+    the mean taken over the rest."""
+    sync = _sync()
+    orig = sync.gradients
+
+    def gradients(self, module):
+        import torch.distributed as dist
+
+        if dist.get_rank(self.group) >= self.world // 2:
+            for p in module.parameters():
+                p.grad.zero_()
+        orig(self, module)
+        for p in module.parameters():
+            p.grad.mul_(self.world / (self.world // 2))
+
+    patch(sync, "gradients", gradients)
+
+
+def no_exchange(patch) -> None:
+    """The gradients' exchange between the ranks left out: each rank
+    steps with its own."""
+    patch(_sync(), "gradients", lambda self, module: None)
+
+
 TRAIN = {"unchanged": unchanged, "half_points": half_points,
          "altered_crop": altered_crop, "d_unstepped": d_unstepped,
          "d_no_warmup": d_no_warmup, "d_beta2": d_beta2}
 FRAME = {"altered_frame": altered_frame}
+DDP = {"skip_average": skip_average, "sum_not_mean": sum_not_mean,
+       "half_batch": half_batch, "no_exchange": no_exchange}
+ALL = {**TRAIN, **FRAME, **DDP}
+
+
+def plant_named(patch) -> None:
+    """Plant the fault that the environment's ``ENV`` names, if any."""
+    name = os.environ.get(ENV)
+    if name:
+        ALL[name](patch)
 
 
 class Patcher:

@@ -12,7 +12,15 @@ metric is a file found by its name in ``BENCHMARK.json``:
 - ``gcbench/limits/<workload>.json``: the limit of each number the
   comparison reads for that cell;
 - ``gcbench/metrics/<metric name>.py``: the reader of a per-layer metric
-  (``read(ctx)``, and ``install(ctx)`` where it needs hooks).
+  (``read(ctx)``, and ``install(ctx)`` where it needs hooks);
+- ``gcbench/cities/<builder>.py``: a city that a traffic file's ``city``
+  names by its ``builder`` (``gcbench.inputs.city_from``).
+
+A configuration file may name further configuration files of the same
+deployment (``companions``) and carry further generators of its own
+(``models``: a list of objects with ``model``, ``config`` and
+``precision``, each read like a configuration file); each generator
+(``model``) appears once among them.
 
 The last line of standard output is one JSON object: ``correct``,
 ``attempted``, ``failed``, ``metrics``, ``device``, with ``--trace 1``
@@ -53,7 +61,9 @@ class Cell:
     root: str
     workload: dict
     config: dict  # the configuration file
-    companions: Dict[str, dict]  # further configuration files it names
+    # further generators of the deployment: the configuration files it
+    # names, and the entries of its ``models``
+    companions: Dict[str, dict]
     traffic: dict
     limits: dict
     end_to_end: List[dict]
@@ -75,6 +85,13 @@ def find_cell(root: str, name: str) -> Cell:
 
     conf = config_file(wl["config"])
     companions = {c: config_file(c) for c in conf.get("companions", [])}
+    more = conf.get("models", [])
+    models = [c["model"] for c in [conf, *companions.values(), *more]
+              if "model" in c]
+    twice = sorted({m for m in models if models.count(m) > 1})
+    if twice:
+        raise SystemExit(f"{wl['config']}: generators {twice} given twice")
+    companions.update({f"{wl['config']}.{m['model']}": m for m in more})
     gc = os.path.join(root, "gcbench")
     traffic = load_json(os.path.join(gc, "traffic", f"{wl['traffic']}.json"))
     limits = load_json(os.path.join(gc, "limits", f"{name}.json"))
@@ -88,9 +105,11 @@ def find_cell(root: str, name: str) -> Cell:
                 per_layer=[m for m in bench["per_layer"] if in_cell(m)])
 
 
-def load_reader(path: str):
-    """A per-layer metric's reader module, loaded from its file."""
-    name = "gcbench_metric_" + os.path.basename(path)[:-3].replace(".", "_")
+def load_module(path: str):
+    """A module loaded from its file under the cell's root: a per-layer
+    metric's reader, or a city builder."""
+    name = (f"gcbench_{os.path.basename(os.path.dirname(path))}_"
+            + os.path.basename(path)[:-3].replace(".", "_"))
     spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
@@ -108,6 +127,8 @@ class Context:
       profiler, the stage timers and the hooks were on;
     - ``profile``: the profiled pass (``gcbench.trace.Profile``) over the
       steps or frames whose work the reference counted;
+    - ``ranks``: in a data-parallel cell every rank's profiled pass, by
+      rank (``profile`` is rank 0's); empty elsewhere;
     - ``n_traced``: the steps or frames of the instrumented pass (the
       followed steps again; one whole orbit of frames);
     - ``stage_ms``: the program's stage times (the instrumented pass for a
@@ -121,6 +142,7 @@ class Context:
     unit_s: float = 0.0
     n_traced: int = 0
     profile: object = None
+    ranks: List[object] = field(default_factory=list)
     stage_ms: Dict[str, list] = field(default_factory=dict)
     hooks: Dict[str, object] = field(default_factory=dict)
     work: Dict[str, object] = field(default_factory=dict)
@@ -180,7 +202,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     from gcbench.kinds import kind as load_kind
 
     kind = load_kind(cell.traffic["kind"])
-    readers = {m["name"]: load_reader(cell.metric_file(m["name"]))
+    readers = {m["name"]: load_module(cell.metric_file(m["name"]))
                for m in cell.per_layer} if trace else {}
     return kind.run(cell, seed=seed, seconds=seconds, readers=readers,
                     device=device, t_start=t_start)

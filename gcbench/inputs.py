@@ -7,13 +7,15 @@ The city and its helpers are frozen copies of ``chip_smoke.py``'s
 extrusion, normalisation and look-at code, so that nothing here runs the
 program.  A train traffic file's ``sampler`` names the module
 ``gcbench/samplers/<sampler>.py`` whose ``sample(cfg, traffic, seed,
-device)`` makes its samples; every number a sampler uses comes from the
-traffic file (``gcbench/traffic/<name>.json``).
+device, city)`` makes its samples from the traffic's city; every number
+a sampler uses comes from the traffic file
+(``gcbench/traffic/<name>.json``).
 """
 
 from __future__ import annotations
 
 import importlib
+import os
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -47,7 +49,14 @@ def synthetic_city(P: int, n_buildings: int, seed: int):
     projections = {"REST": {
         "INS": ins, "SEG": seg, "TD_HF": td,
         "BU_HF": np.zeros((P, P), np.int16), "PTS": np.ones((P, P), bool)}}
-    # each instance's (mean x, mean y, width, depth, top) over its pixels,
+    return projections, instance_centers(ins, td)
+
+
+def instance_centers(ins: np.ndarray, td: np.ndarray) -> dict:
+    """Each instance's (mean x, mean y, width, depth, top) over its pixels
+    of the [P, P] instance and height maps, mirrored to id + 1 (a
+    building's roof)."""
+    P = ins.shape[1]
     # grouped by one stable sort (the sums of integers are exact)
     flat = ins.ravel()
     order = np.argsort(flat, kind="stable")
@@ -65,11 +74,20 @@ def synthetic_city(P: int, n_buildings: int, seed: int):
                              float(x1 - x0 + 1), float(y1 - y0 + 1),
                              float(top))
         centers[int(iid) + 1] = centers[int(iid)]
-    return projections, centers
+    return centers
 
 
-def city_from(traffic: dict):
+def city_from(traffic: dict, root: str):
+    """The traffic's city: (projections, centers).  A ``city`` that names
+    a ``builder`` is built by ``build(city)`` of
+    ``<root>/gcbench/cities/<builder>.py``, ``root`` the cell's; any other
+    is the synthetic city."""
     c = traffic["city"]
+    if "builder" in c:
+        from gcbench.harness import load_module
+
+        return load_module(os.path.join(root, "gcbench", "cities",
+                                        f"{c['builder']}.py")).build(c)
     return synthetic_city(c["size"], c["n_buildings"], c["seed"])
 
 
@@ -148,6 +166,13 @@ def in_crop(cfg, xyz: np.ndarray, cam_pos, quat, device) -> np.ndarray:
 def sampler(name: str):
     """The ``sample`` function of ``gcbench/samplers/<name>.py``."""
     return importlib.import_module(f"gcbench.samplers.{name}").sample
+
+
+def samples(cell, cfg, seed: int, device) -> list:
+    """A train cell's samples: its traffic's ``sampler`` over its city."""
+    t = cell.traffic
+    return sampler(t["sampler"])(cfg, t, seed, device,
+                                 city_from(t, cell.root))
 
 
 def orbit(traffic: dict, seed: int) -> List[dict]:

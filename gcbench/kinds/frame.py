@@ -2,13 +2,14 @@
 uint8 readback over the traffic's orbit, after ``prepare`` at set-up, as
 ``python3 -m gaussiancity_tpu_torch --inference`` renders a fly-through.
 
-The cell's configuration and the configurations it names as companions
-each give one generator (their ``model``: REST or BLDG); the pipeline
-takes the REST configuration's settings, as the command line does, and
-with more than one model gives each the traffic's ``point_budget`` of
-its own class's points.  A seed-drawn sample of the window's frames is
-kept (visible rows, Gaussians, frame) and held against the reference
-once the window has closed."""
+The cell's configuration, the configurations it names as companions and
+the entries of its ``models`` each give one generator (their ``model``:
+REST, BLDG or CAR); the pipeline takes the REST configuration's
+settings, as the command line does, and with more than one model gives
+each the traffic's ``point_budget`` of its own class's points.  A
+seed-drawn sample of the window's frames is kept (visible rows,
+Gaussians, frame) and held against the reference once the window has
+closed."""
 
 from __future__ import annotations
 
@@ -25,7 +26,9 @@ from gcbench.trace import profiled
 from gcbench.work import k1 as k1_work
 from gcbench.work.flops import WorkCounter
 
-MODEL_TAGS = {"REST": 10, "BLDG": 11}
+# seed tags of the generators' weights and of the style table: no two alike
+MODEL_TAGS = {"REST": 10, "BLDG": 11, "CAR": 13}
+STYLE_TAG = 12
 
 
 def _confs(cell) -> dict:
@@ -47,10 +50,11 @@ class Plan:
         self.confs = _confs(cell)
         self.rcfgs = {k: weights.reference_config(c)
                       for k, c in self.confs.items()}
-        self.projections, self.centers = inputs.city_from(traffic)
+        self.projections, self.centers = inputs.city_from(traffic,
+                                                          cell.root)
         self.poses = inputs.orbit(traffic, seed)
         z_dim = max([c.network.z_dim or 1 for c in self.rcfgs.values()])
-        self.lut = get_style_lut(z_dim, inputs.sub_seed(seed, 12))
+        self.lut = get_style_lut(z_dim, inputs.sub_seed(seed, STYLE_TAG))
         self.budget = int(traffic["point_budget"])
         self.budgets = ({k: self.budget for k in self.confs}
                         if len(self.confs) > 1 else None)

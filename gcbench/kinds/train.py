@@ -46,19 +46,18 @@ def _grads(opts, modules, beta1) -> Dict[str, Dict[str, float]]:
             for k, m in modules.items()}
 
 
-def _follow(trainer, modules, opts, samples, seed, n, device, capture,
-            beta1) -> dict:
-    """Drive ``trainer`` through steps 0..n-1; ``capture(trainer)`` gives
-    the first step's attributes and crop."""
+def _follow(step, modules, opts, samples, rngs, n, capture, beta1) -> dict:
+    """Drive ``step(batch, rng)`` through steps 0..n-1 on ``samples[i]``
+    and ``rngs(i)``; ``capture()`` gives the first step's attributes and
+    crop."""
     start = _snapshot(modules)
     out = {"losses": [], "lr_D": []}
     for i in range(n):
-        m = trainer.train_step(samples[i % len(samples)],
-                               step_rng(seed, i, device))
+        m = step(samples[i % len(samples)], rngs(i))
         out["losses"].append(_losses(m))
         out["lr_D"].append(float(opts["D"].param_groups[0]["lr"]))
         if i == 0:
-            out.update(capture(trainer))
+            out.update(capture())
             out["grad"] = _grads(opts, modules, beta1)
     out["change"] = {k: compare.change_norms(compare.named_params(m),
                                              start[k])
@@ -74,6 +73,7 @@ class _Capture:
     instance) of the program's trainer."""
 
     def __init__(self, trainer):
+        self.trainer = trainer
         self.got = {}
         self.h = trainer.generator.register_forward_hook(self._attrs)
         self.orig = trainer._render_fake
@@ -88,9 +88,9 @@ class _Capture:
         self.got.setdefault("crop", fake.detach().clone())
         return fake, diag
 
-    def __call__(self, trainer):
+    def __call__(self):
         self.h.remove()
-        del trainer._render_fake
+        del self.trainer._render_fake
         return dict(self.got)
 
 
@@ -104,8 +104,7 @@ def run(cell, seed: int, seconds: float, readers: dict, device: str,
     cfg = Config.from_dict(cell.config["config"])
     rcfg = weights.reference_config(cell.config)
     beta1 = float(rcfg.train.betas[0])
-    samples = inputs.sampler(traffic["sampler"])(rcfg, traffic, seed,
-                                                 device)
+    samples = inputs.samples(cell, rcfg, seed, device)
     n_follow = int(traffic["followed_steps"])
     made = weights.train_models(rcfg, seed, device)
     trainer = Trainer(cfg, device=device)
@@ -117,7 +116,8 @@ def run(cell, seed: int, seconds: float, readers: dict, device: str,
     devices.reset_peak(device)
     modules = {"G": trainer.generator, "D": trainer.discriminator}
     opts = {"G": trainer.g_opt, "D": trainer.d_opt}
-    prog = _follow(trainer, modules, opts, samples, seed, n_follow, device,
+    prog = _follow(trainer.train_step, modules, opts, samples,
+                   lambda i: step_rng(seed, i, device), n_follow,
                    _Capture(trainer), beta1)
     devices.sync(device)
     setup_s = time.perf_counter() - t_start
@@ -201,20 +201,27 @@ def _reference(rcfg, samples, seed, n_follow, device, beta1,
                counting: bool):
     made = weights.train_models(rcfg, seed, device)
     rt = ReferenceTrainer(rcfg, made)
+    return follow_reference(rt, samples, lambda i: step_rng(seed, i, device),
+                            n_follow, beta1, counting)
+
+
+def follow_reference(rt, samples, rngs, n_follow, beta1, counting: bool):
+    """``_follow`` of the reference trainer ``rt``, and with ``counting``
+    the work of its steps."""
     modules = {"G": rt.generator, "D": rt.discriminator}
     opts = {"G": rt.g_opt, "D": rt.d_opt}
 
-    def capture(t):
-        return {"attrs": t.last["attrs"], "crop": t.last["fake"]}
+    def capture():
+        return {"attrs": rt.last["attrs"], "crop": rt.last["fake"]}
 
     work = {}
     if counting:
         with WorkCounter([rt.generator]) as wc:
-            ref = _follow(rt, modules, opts, samples, seed, n_follow, device,
-                          capture, beta1)
+            ref = _follow(rt.train_step, modules, opts, samples, rngs,
+                          n_follow, capture, beta1)
         work = {"flops_per_unit": wc.flops() / n_follow,
                 "submconv": wc.submconv(), "units": n_follow}
     else:
-        ref = _follow(rt, modules, opts, samples, seed, n_follow, device,
+        ref = _follow(rt.train_step, modules, opts, samples, rngs, n_follow,
                       capture, beta1)
     return ref, work

@@ -90,6 +90,13 @@ def instances_to_classes_np(instances: np.ndarray, ds) -> np.ndarray:
     return out
 
 
+def class_scales(ds):
+    """The extrusion's scale of each class, by the dataset's name (the
+    pipeline's ``dataset_generator.class_scale_table``)."""
+    return (ext.KITTI_360_CLASS_SCALES if ds.name == "KITTI_360"
+            else ext.GOOGLE_EARTH_CLASS_SCALES)
+
+
 def select_nearest_rows(pts9: np.ndarray, cam_pos: np.ndarray,
                         budget: int):
     n = len(pts9)
@@ -118,7 +125,7 @@ def frame_to_uint8(img: torch.Tensor) -> np.ndarray:
 
 class ReferencePipeline:
     """The per-frame path of ``InferencePipeline`` in plain PyTorch:
-    ``models`` maps "REST" / "BLDG" to reference generators;
+    ``models`` maps "REST" / "BLDG" / "CAR" to reference generators;
     ``class_budgets`` selects the compact per-class path."""
 
     def __init__(self, cfg, models: Dict[str, torch.nn.Module],
@@ -151,8 +158,7 @@ class ReferencePipeline:
                     for k in ("INS", "TD_HF", "BU_HF")]
             maps.append(torch.as_tensor(np.asarray(p["PTS"]) != 0,
                                         device=dev))
-            pts = ext.extrude_points_exact(*maps, rel,
-                                           ext.GOOGLE_EARTH_CLASS_SCALES,
+            pts = ext.extrude_points_exact(*maps, rel, class_scales(ds),
                                            include_btm_pts=(c != "REST"))
             if c == "REST":
                 pts[pts[:, 4] == 5, 2] = water_z
@@ -220,11 +226,26 @@ class ReferencePipeline:
     def _class_masks(self, classes: torch.Tensor):
         ds = self.ds
         bldg = torch.zeros_like(classes, dtype=torch.bool)
+        car = torch.zeros_like(classes, dtype=torch.bool)
         if "BLDG" in self.models:
             bldg = torch.isin(classes, torch.tensor(
                 [ds.bldg_facade_clsid, ds.bldg_roof_clsid],
                 device=classes.device))
-        return {"BLDG": bldg, "REST": ~bldg}
+        if "CAR" in self.models and ds.car_clsid is not None:
+            car = classes == ds.car_clsid
+        return {"BLDG": bldg, "CAR": car, "REST": ~(bldg | car)}
+
+    def _host_class_split(self, pts9: np.ndarray):
+        ds = self.ds
+        classes = instances_to_classes_np(pts9[:, 4].astype(np.int64), ds)
+        bldg = np.zeros(len(pts9), bool)
+        car = np.zeros(len(pts9), bool)
+        if "BLDG" in self.models:
+            bldg = np.isin(classes, [ds.bldg_facade_clsid,
+                                     ds.bldg_roof_clsid])
+        if "CAR" in self.models and ds.car_clsid is not None:
+            car = classes == ds.car_clsid
+        return {"BLDG": bldg, "CAR": car, "REST": ~(bldg | car)}
 
     @torch.no_grad()
     def render_pose(self, pose: dict):
@@ -240,11 +261,7 @@ class ReferencePipeline:
         gs = []
         f32 = dict(dtype=torch.float32, device=self.device)
         if self.class_budgets:
-            classes = instances_to_classes_np(pts9[:, 4].astype(np.int64),
-                                              ds)
-            bldg = np.isin(classes, [ds.bldg_facade_clsid,
-                                     ds.bldg_roof_clsid])
-            masks = {"BLDG": bldg, "REST": ~bldg}
+            masks = self._host_class_split(pts9)
             for name, module in self.models.items():
                 rows = select_nearest_rows(
                     pts9[masks[name]], cam_pos,

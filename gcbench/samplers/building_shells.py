@@ -13,15 +13,16 @@ from gcbench.reference.frame import (get_quat_from_look_at,
                                      normalize_rel_cords)
 
 
-def sample(cfg, traffic: dict, seed: int, device
+def sample(cfg, traffic: dict, seed: int, device, city
            ) -> List[Dict[str, torch.Tensor]]:
     """The city's ``n_samples`` largest buildings by shell points, each a
     sample of ``points`` shell points (facade and roof, bottom rings
     included) seen by a camera facing the building from 0.75 of the
     distance at which its height fills the crop (``chip_smoke.
     building_batch``, frozen).  The buildings are the same for every
-    seed; the point subsets, the targets and their order come from it."""
-    projections, centers = inputs.city_from(traffic)
+    seed; the point subsets, the targets and their order come from it.
+    ``city`` is the traffic's (``inputs.city_from``)."""
+    projections, centers = city
     pts = inputs.extrude_city(projections, True, device)
     ids = pts[:, 4].astype(np.int64)
     bldg = np.where(ids >= 100, ids - (ids - 100) % 2, -1)

@@ -13,7 +13,7 @@ from gcbench.reference.frame import (get_orbit_camera_poses,
                                      normalize_rel_cords)
 
 
-def sample(cfg, traffic: dict, seed: int, device
+def sample(cfg, traffic: dict, seed: int, device, city
            ) -> List[Dict[str, torch.Tensor]]:
     """``n_samples`` views of the city on an orbit (``view_radius``,
     ``view_altitude``) around its centre, each the REST points (instances
@@ -21,8 +21,8 @@ def sample(cfg, traffic: dict, seed: int, device
     sorted random subset as upstream's RandomCrop caps them, with the
     city's height field and segmentation as the encoder's projection
     maps.  Points hidden behind buildings are kept: no raycast decides
-    visibility here."""
-    projections, centers = inputs.city_from(traffic)
+    visibility here.  ``city`` is the traffic's (``inputs.city_from``)."""
+    projections, centers = city
     pts = inputs.extrude_city(projections, False, device)
     rest = pts[pts[:, 4] < 100]
     P = traffic["city"]["size"]

@@ -30,7 +30,7 @@ def test_every_cell_finds_its_files(name):
         assert callable(inputs.sampler(cell.traffic["sampler"]))
     assert cell.limits
     for m in cell.per_layer:
-        reader = harness.load_reader(cell.metric_file(m["name"]))
+        reader = harness.load_module(cell.metric_file(m["name"]))
         assert callable(reader.read)
     names = {m["name"] for m in cell.end_to_end}
     assert "setup_s" in names and len(names) >= 2
@@ -46,11 +46,14 @@ def test_every_metric_has_a_reader_and_every_config_a_file():
         assert conf["name"] == c["name"]
         for comp in conf["companions"]:
             assert comp in {x["name"] for x in BENCH["configs"]}
+        for m in conf.get("models", []):
+            assert {"model", "config", "precision"} <= set(m)
 
 
 @pytest.mark.parametrize("name,trace", [
     ("tiny_rest.train", False), ("tiny_bldg.train", True),
-    ("tiny_rest.frame", True), ("tiny_city.frame", False)])
+    ("tiny_rest.frame", True), ("tiny_city.frame", False),
+    ("tiny_kitti.frame", False)])
 def test_a_cell_added_as_files_runs(tiny_root, name, trace):
     result, compared = tiny.run(tiny_root, name, seed=2 ** 31 + 7,
                                 trace=trace)
@@ -64,3 +67,30 @@ def test_a_cell_added_as_files_runs(tiny_root, name, trace):
     assert metrics <= want
     if not trace:
         assert metrics == want
+
+
+def test_a_deployment_of_three_generators_reads_as_files(tiny_root):
+    """The KITTI-shaped cell: one configuration whose ``models`` add the
+    BLDG and CAR generators, and a city that its traffic file's
+    ``builder`` names, with cars in KITTI-360's car range."""
+    from gcbench.kinds.frame import Plan
+
+    cell = harness.find_cell(tiny_root, "tiny_kitti.frame")
+    plan = Plan(cell, seed=3)
+    assert list(plan.confs) == ["REST", "BLDG", "CAR"]
+    assert plan.budgets == {k: 4096 for k in plan.confs}
+    ins = plan.projections["REST"]["INS"]
+    assert len({int(i) for i in ins[ins >= 10000]}) == 12
+    assert plan.rcfgs["REST"].dataset.flip_ud
+
+
+def test_a_generator_given_twice_is_refused(tmp_path):
+    tiny.write_bench(str(tmp_path))
+    path = os.path.join(str(tmp_path), "gcbench", "configs",
+                        "tiny-kitti.json")
+    conf = json.load(open(path))
+    conf["models"].append(dict(conf["models"][0]))
+    with open(path, "w") as f:
+        json.dump(conf, f)
+    with pytest.raises(SystemExit, match="BLDG"):
+        harness.find_cell(str(tmp_path), "tiny_kitti.frame")

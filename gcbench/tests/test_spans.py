@@ -43,7 +43,7 @@ def profile(host=HOST):
 
 
 def reader(name):
-    return harness.load_reader(f"{tiny.REPO}/gcbench/metrics/{name}.py")
+    return harness.load_module(f"{tiny.REPO}/gcbench/metrics/{name}.py")
 
 
 @pytest.mark.parametrize("name,want", [

@@ -43,12 +43,22 @@ def tiny_rest() -> Config:
             discriminator=DiscriminatorOptim(n_warmup_iters=4)))
 
 
-def tiny_bldg() -> Config:
-    cfg = tiny_rest()
+def tiny_bldg(cfg: Config = None) -> Config:
+    cfg = cfg or tiny_rest()
     return cfg.replace(network=cfg.network.replace(
         scale_factor=0.65, encoder=None, encoder_out_dim=3,
         pos_emd="SIN_COS", sin_cos_freq_bends=4, z_dim=16,
         ptv3=PTv3Config(dense_nbr_extent=64, **TINY_PTV3)))
+
+
+def tiny_kitti() -> Config:
+    """``tiny_rest`` on a KITTI-360-shaped dataset: its name (its class
+    scales), flipped frames, its building and car ranges."""
+    cfg = tiny_rest()
+    return cfg.replace(dataset=cfg.dataset.replace(
+        name="KITTI_360", flip_ud=True, bldg_range=(100, 10000),
+        car_range=(10000, 16384), car_clsid=3,
+        z_scale_special_classes=(1, 6)))
 
 
 CITY = {"size": 96, "n_buildings": 4, "seed": 0}
@@ -63,17 +73,34 @@ TRAFFIC = {
     "tiny_orbit": {"kind": "frame", "city": CITY, "n_poses": 4,
                    "radius": 30, "altitude": 40, "point_budget": 4096,
                    "vol_shape": [96, 96, 128], "sample_frames": 2},
+    "tiny_kitti_orbit": {"kind": "frame",
+                         "city": dict(CITY, builder="tiny_kitti",
+                                      n_cars=12),
+                         "n_poses": 4, "radius": 30, "altitude": 40,
+                         "point_budget": 4096, "vol_shape": [96, 96, 128],
+                         "sample_frames": 2},
+    "tiny_views_ddp2": {"kind": "train_ddp", "sampler": "city_views",
+                        "city": CITY, "n_samples": 3, "points": 256,
+                        "view_radius": 30, "view_altitude": 30, "world": 2,
+                        "followed_steps": 2, "traced_steps": 2},
 }
 TRAIN_LIMITS = {"loss": 1e-5, "attrs": 1e-5, "crop": 1e-5, "grad.G": 1e-4,
                 "grad.D": 1e-4, "change.G": 1e-3, "adam.D": 1e-4,
                 "lr.D": 0}
 FRAME_LIMITS = {"vis_rows": 0, "gauss": 1e-5, "frame_px": 0.001}
+DDP_LIMITS = dict(TRAIN_LIMITS, replicas=0)
 CELLS = [  # name, config, traffic, limits
     ("tiny_bldg.train", "tiny-bldg", "tiny_shells", TRAIN_LIMITS),
     ("tiny_rest.train", "tiny-rest", "tiny_views", TRAIN_LIMITS),
     ("tiny_city.frame", "tiny-bldg", "tiny_orbit", FRAME_LIMITS),
     ("tiny_rest.frame", "tiny-rest", "tiny_orbit", FRAME_LIMITS),
+    ("tiny_kitti.frame", "tiny-kitti", "tiny_kitti_orbit", FRAME_LIMITS),
+    ("tiny_rest.train.ddp2", "tiny-rest", "tiny_views_ddp2", DDP_LIMITS),
 ]
+# a KITTI-360 deployment as one configuration: REST, with its BLDG and
+# CAR generators under "models"
+KITTI_MODELS = [("BLDG", tiny_bldg(tiny_kitti())),
+                ("CAR", tiny_bldg(tiny_kitti()))]
 
 
 def write_bench(root: str, cells=CELLS) -> dict:
@@ -86,12 +113,21 @@ def write_bench(root: str, cells=CELLS) -> dict:
         os.makedirs(os.path.join(gc, d), exist_ok=True)
     shutil.copytree(os.path.join(REPO, "gcbench", "metrics"),
                     os.path.join(gc, "metrics"), dirs_exist_ok=True)
-    confs = {"tiny-rest": ("REST", tiny_rest(), []),
-             "tiny-bldg": ("BLDG", tiny_bldg(), ["tiny-rest"])}
-    for name, (model, cfg, comp) in confs.items():
+    os.makedirs(os.path.join(gc, "cities"), exist_ok=True)
+    shutil.copy(os.path.join(REPO, "gcbench", "tests", "tiny_kitti_city.py"),
+                os.path.join(gc, "cities", "tiny_kitti.py"))
+    confs = {"tiny-rest": ("REST", tiny_rest(), [], []),
+             "tiny-bldg": ("BLDG", tiny_bldg(), ["tiny-rest"], []),
+             "tiny-kitti": ("REST", tiny_kitti(), [], KITTI_MODELS)}
+    for name, (model, cfg, comp, more) in confs.items():
+        conf = {"name": name, "model": model, "companions": comp,
+                "config": cfg.to_dict()}
+        if more:
+            conf["models"] = [{"model": m, "config": c.to_dict(),
+                               "precision": ["compute", "params"]}
+                              for m, c in more]
         with open(os.path.join(gc, "configs", f"{name}.json"), "w") as f:
-            json.dump({"name": name, "model": model, "companions": comp,
-                       "config": cfg.to_dict()}, f)
+            json.dump(conf, f)
     for name, t in TRAFFIC.items():
         with open(os.path.join(gc, "traffic", f"{name}.json"), "w") as f:
             json.dump(t, f)
@@ -104,7 +140,12 @@ def write_bench(root: str, cells=CELLS) -> dict:
         if "workloads" not in m:
             return dict(m)
         ws = [w.replace("bldg.", "tiny_bldg.").replace("rest.", "tiny_rest.")
-              .replace("city.", "tiny_city.") for w in m["workloads"]]
+              .replace("city.", "tiny_city.").replace(".ddp4", ".ddp2")
+              for w in m["workloads"]]
+        # the three-generator KITTI frame cell reads what the two-generator
+        # city frame cell reads
+        if "tiny_city.frame" in ws:
+            ws.append("tiny_kitti.frame")
         return dict(m, workloads=[w for w in ws if w in names])
 
     bench = {
@@ -113,8 +154,9 @@ def write_bench(root: str, cells=CELLS) -> dict:
         "configs": [{"name": n, "source": "test",
                      "file": f"gcbench/configs/{n}.json", "reduced": [],
                      "why": "tiny"} for n in confs],
-        "workloads": [{"name": n, "config": c, "traffic": t, "chips": 1,
-                       "why": "tiny"} for n, c, t, _ in cells],
+        "workloads": [{"name": n, "config": c, "traffic": t,
+                       "chips": TRAFFIC[t].get("world", 1), "why": "tiny"}
+                      for n, c, t, _ in cells],
         "end_to_end": [keep(m) for m in real["end_to_end"]],
         "per_layer": [keep(m) for m in real["per_layer"]],
     }
